@@ -35,15 +35,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FULL = dict(nodes=1 << 22, edges_per_batch=1 << 22, batches=24,
             edge_capacity=1 << 26, duration=5_000_000, walks=1 << 20,
             length=80)
+# The fused plain version runs on a lane subset of the full-width hop:
+# this many random lanes plus this many tier-L lanes.
+COMPARE_LANES = 4096
+COMPARE_BIG_LANES = 128
+# walks per batch in the reduced weight-mode phase (at most the main
+# path's own count)
+WEIGHT_WALKS = 1 << 14
 
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     for name, value in FULL.items():
         p.add_argument("--" + name.replace("_", "-"), type=int, default=value)
-    p.add_argument("--weight-walks", type=int, default=1 << 14)
-    p.add_argument("--compare-lanes", type=int, default=4096)
-    p.add_argument("--compare-big-lanes", type=int, default=128)
     return p.parse_args(argv)
 
 
@@ -114,8 +118,7 @@ def hop_inputs(index, wcfg, scfg, sched, key, hops: int):
     return s_node, s_time.contiguous(), u
 
 
-def compare_fused(index, sched, s_node, s_time, code, u, mode, rng,
-                  n_lanes, n_big):
+def compare_fused(index, sched, s_node, s_time, code, u, mode, rng):
     """Kernel hop vs the plain version on a lane subset holding tier-L
     lanes; returns (lanes compared per tier, max |diff|)."""
     import torch
@@ -124,8 +127,9 @@ def compare_fused(index, sched, s_node, s_time, code, u, mode, rng,
     got = kf.fused_walk_step(index, s_node, s_time, code, u, mode, sched)
     big = split.big.cpu().numpy()
     W = big.shape[0]
-    big_ids = rng.permutation(big.nonzero()[0])[:n_big]
-    lanes = torch.as_tensor(sorted(set(rng.choice(W, size=min(n_lanes, W),
+    big_ids = rng.permutation(big.nonzero()[0])[:COMPARE_BIG_LANES]
+    lanes = torch.as_tensor(sorted(set(rng.choice(W, size=min(COMPARE_LANES,
+                                                              W),
                                                   replace=False).tolist())
                                    | set(big_ids.tolist())),
                             device=s_node.device)
@@ -142,6 +146,8 @@ def compare_fused(index, sched, s_node, s_time, code, u, mode, rng,
         require(diff == 0, f"fused {mode}: {diff} lanes differ in {name}")
         err = max(err, (g[lanes].long() - w.long()).abs().max().item())
     sel_big = split.big[lanes]
+    require(int(sel_big.sum()) >= min(COMPARE_BIG_LANES, int(big.sum())),
+            f"fused {mode}: too few tier-L lanes compared")
     return dict(tier_s=int((~sel_big).sum()), tier_l=int(sel_big.sum()),
                 max_abs_err=err), split, got, lanes
 
@@ -199,6 +205,17 @@ def profile_batch(engine, batch, wcfg) -> dict:
             busy += t - max(s, last)
             last = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # device kernels of one hop's draw, to set against the batch's total
+    draw_key = prng.PRNGKey(8)
+    prng.uniform(draw_key, (wcfg.num_walks,), engine.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_u:
+        prng.uniform(draw_key, (wcfg.num_walks,), engine.device)
+        torch.cuda.synchronize()
+    out.update(uniform_kernels=sum(
+        e.device_type == torch.autograd.DeviceType.CUDA
+        for e in prof_u.events()))
     out.update(traced_wall_ms=traced_ms,
                device_busy_ms=busy / 1e3 if spans else None,
                device_idle_share=(1 - busy / 1e3 / traced_ms)
@@ -232,7 +249,8 @@ def main(argv=None) -> int:
                                             powerlaw_temporal_graph)
     from repro_torch.kernels import fused_step as kf
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.weight_prefix import (weight_prefix,
+    from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
+                                                   weight_prefix,
                                                    weight_prefix_plain)
 
     dev = runtime.resolve_device(None)
@@ -281,8 +299,7 @@ def main(argv=None) -> int:
     code_exp = torch.full((W,), BIAS_EXPONENTIAL, dtype=torch.int32,
                           device=dev)
     cmp_index, split, _, lanes = compare_fused(
-        idx, sched, s_node, s_time, code_exp, u, "index", rng,
-        args.compare_lanes, args.compare_big_lanes)
+        idx, sched, s_node, s_time, code_exp, u, "index", rng)
     # weight mode: mixed codes; lanes over hub regions larger than 2^16
     # edges draw exponential (a binary search) instead of linear (a count
     # over the region)
@@ -291,31 +308,29 @@ def main(argv=None) -> int:
     code_mix = torch.where(split.big & (region > (1 << 16)),
                            BIAS_EXPONENTIAL, code_mix).to(torch.int32)
     cmp_weight, *_ = compare_fused(
-        idx, sched, s_node, s_time, code_mix, u, "weight", rng,
-        args.compare_lanes, args.compare_big_lanes)
+        idx, sched, s_node, s_time, code_mix, u, "weight", rng)
 
-    # weight_prefix on the index's own exponential weights
+    # weight_prefix on the index's own exponential weights, against the
+    # plain version's float64 prefix, in units of float32 roundoff of P
     nc = idx.node_capacity
     in_range = idx.ns_src < nc
     dt = (idx.ns_ts - idx.node_tref[idx.ns_src.clamp(0, nc - 1).long()]) \
         .to(torch.float32)
     wp_k = weight_prefix(dt, in_range)
     wp_p = weight_prefix_plain(dt, in_range)
-    wp_err = (wp_k - wp_p).abs()
-    wp_tol = 1e-4 * wp_p.abs() + 1e-3
-    require(bool((wp_err <= wp_tol).all()),
-            "weight_prefix exceeds |diff| <= 1e-4·|P| + 1e-3")
+    wp_err_u = error_in_u(wp_k, wp_p)
+    wp_max_err = (wp_k - wp_p).abs().max().item()
+    wp_reading = dict(max_abs_err=wp_max_err, max_err_u=wp_err_u,
+                      p_max=wp_p[-1].item(),
+                      tolerance=f"|diff| <= {TOL_U}*2^-24*P")
+    require(wp_err_u <= TOL_U,
+            f"weight_prefix exceeds its tolerance: {wp_reading}")
     require(bool((wp_k[1:] >= wp_k[:-1]).all()),
             "weight_prefix output is not non-decreasing")
     require(bool(torch.equal(wp_k, idx.pexp)), "pexp != weight_prefix")
-    wp_max_err = wp_err.max().item()
     emit("kernels_vs_plain",
          fused_index=cmp_index, fused_weight=cmp_weight,
-         weight_prefix=dict(max_abs_err=wp_max_err,
-                            max_rel_err=(wp_err / wp_p.abs().clamp(min=1))
-                            .max().item(),
-                            tolerance="|diff| <= 1e-4*|P| + 1e-3",
-                            monotone=True),
+         weight_prefix=dict(**wp_reading, monotone=True),
          lanes=W, tier_l_lanes=int(split.big.sum()),
          window_edges=int(idx.num_edges))
 
@@ -364,7 +379,7 @@ def main(argv=None) -> int:
     bound_s = (n_small * lane_io + live_s * 8 + T * 4) / HBM_BYTES_PER_S * 1e3
     bound_l = (n_big * lane_io + live_l * 8) / HBM_BYTES_PER_S * 1e3
     bound_wp = (E * 5 + (E + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p, wp_err, wp_tol
+    del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full size ------------------------------
@@ -414,8 +429,9 @@ def main(argv=None) -> int:
                                  seed=1)
     wbatches = list(chronological_batches(wg, wK))
     weight_runs = {}
+    weight_walks = min(WEIGHT_WALKS, args.walks)
     for bias in ("linear", "exponential"):
-        wcfg_w = WalkConfig(num_walks=args.weight_walks,
+        wcfg_w = WalkConfig(num_walks=weight_walks,
                             max_length=args.length, start_mode="nodes")
         cfg_w = EngineConfig(
             window=WindowConfig(duration=5_000_000.0, edge_capacity=1 << 20,
@@ -436,7 +452,7 @@ def main(argv=None) -> int:
                                  num_hops=r.num_hops, launches=got_launches)
     emit("weight_mode", runs=weight_runs,
          cuts=dict(nodes=wn, edges_per_batch=wb, batches=wK,
-                   edge_capacity=1 << 20, walks=args.weight_walks))
+                   edge_capacity=1 << 20, walks=weight_walks))
 
     # small replay: the card's path equals the CPU plain versions byte for
     # byte in index mode (no float prefix is read there)

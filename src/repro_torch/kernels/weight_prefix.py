@@ -7,7 +7,10 @@ oracle kernels/ref.py::weight_prefix_ref. The index build computes
 ``pexp`` and ``pexp_store`` through it.
 
 A CUDA tensor goes to the Hopper kernel (csrc/weight_prefix.cu); a CPU
-tensor goes to the plain version ``weight_prefix_plain``.
+tensor goes to the plain version ``weight_prefix_plain``. The plain
+version accumulates in float64 and rounds once, so at a multi-million-edge
+window it is the exact prefix to within half an ulp; ``error_in_u``
+measures the kernel's float32 chain against it.
 """
 from __future__ import annotations
 
@@ -21,15 +24,29 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p]
 _BLOCK_ELEMS = 4096      # kBlockElems in csrc/weight_prefix.cu
+_U = 2.0 ** -24          # float32 unit roundoff
+# The kernel may differ from the plain version by this many units of
+# float32 roundoff of P (``error_in_u``). PERF.md gives the on-card
+# readings it is set from, on a sound kernel and on one with a block
+# total dropped.
+TOL_U = 8.0
 
 
 def weight_prefix_plain(dt: torch.Tensor, valid: torch.Tensor,
                         scale: float = 1.0) -> torch.Tensor:
-    """Plain PyTorch version: masked exp, then ``torch.cumsum``."""
+    """Plain PyTorch version: masked float32 exp, then a float64
+    ``torch.cumsum`` rounded to float32 (non-decreasing, like the kernel)."""
     w = torch.where(valid, torch.exp(scale * dt.to(torch.float32)),
                     torch.zeros((), dtype=torch.float32, device=dt.device))
-    zero = torch.zeros(1, dtype=torch.float32, device=dt.device)
-    return torch.cat([zero, torch.cumsum(w, 0)])
+    zero = torch.zeros(1, dtype=torch.float64, device=dt.device)
+    return torch.cat([zero, torch.cumsum(w.double(), 0)]).float()
+
+
+def error_in_u(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max_i |got_i - want_i| / (u · max(want_i, FLT_MIN)) with u = 2^-24:
+    the error of a prefix in units of float32 roundoff of its own value."""
+    scale = want.double().clamp(min=torch.finfo(torch.float32).tiny) * _U
+    return ((got.double() - want.double()).abs() / scale).max().item()
 
 
 def weight_prefix(dt: torch.Tensor, valid: torch.Tensor,

@@ -24,6 +24,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.runtime import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -87,10 +89,12 @@ def fold_in(key: KeyLike, data: int) -> torch.Tensor:
 
 
 def uniform(key: KeyLike, shape: Sequence[int],
-            device: torch.device | str = "cpu") -> torch.Tensor:
-    """float32 U[0, 1) of ``shape`` (``jax.random.uniform``)."""
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """float32 U[0, 1) of ``shape`` (``jax.random.uniform``), on CUDA unless
+    ``device`` names another."""
     k1, k2 = key_words(key)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=resolve_device(device))
     y0, y1 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK)
     bits = (y0 ^ y1).reshape(tuple(shape))
     f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)

@@ -24,7 +24,8 @@ from repro_torch.data.synthetic import (chronological_batches,
                                         powerlaw_temporal_graph)
 from repro_torch.kernels import fused_step as kf
 from repro_torch.kernels import runtime
-from repro_torch.kernels.weight_prefix import (weight_prefix,
+from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
+                                               weight_prefix,
                                                weight_prefix_plain)
 
 pytestmark = pytest.mark.cuda
@@ -79,7 +80,7 @@ def test_weight_prefix_kernel_matches_plain(card):
     want = weight_prefix_plain(dt, valid)
     assert got[0].item() == 0.0
     assert bool((got[1:] >= got[:-1]).all())
-    assert bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-3).all())
+    assert error_in_u(got, want) <= TOL_U
 
 
 def test_small_replay_card_equals_cpu(card):

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch import random as prng
 from repro_torch.configs.base import EngineConfig, SchedulerConfig
 from repro_torch.core import edge_store as es
 from repro_torch.core.streaming import StreamingEngine
@@ -82,6 +83,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: runtime.resolve_device(None),
+        lambda: prng.uniform(prng.PRNGKey(0), (4,)),
         lambda: es.make_batch([1], [2], [3]),
         lambda: es.stack_batches([([1], [2], [3])], 4),
         lambda: es.empty_store(16, 4),

@@ -17,7 +17,9 @@ from repro.kernels.weight_prefix import weight_prefix as j_weight_prefix
 from repro_torch.core import edge_store as es
 from repro_torch.core import temporal_index as ti
 from repro_torch.kernels import runtime
-from repro_torch.kernels.weight_prefix import weight_prefix
+from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
+                                               weight_prefix,
+                                               weight_prefix_plain)
 
 RTOL, ATOL = 1e-5, 1e-4
 FLOATS = ("pexp", "plin", "pexp_store", "plin_store")
@@ -147,3 +149,20 @@ def test_batches_byte_equal():
     for f in es.EdgeBatch._fields:
         np.testing.assert_array_equal(getattr(gb, f).numpy(),
                                       np.asarray(getattr(wb, f)))
+
+
+def test_weight_prefix_error_reads_a_dropped_block():
+    """``error_in_u`` holds a sound float32 scan within ``TOL_U`` of the
+    plain version and reads one dropped 4096-edge block total far above
+    it."""
+    rng = np.random.default_rng(5)
+    E = 8192 * 4
+    dt = torch.from_numpy(-rng.exponential(3.0, size=E).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=E) < 0.8)
+    want = weight_prefix_plain(dt, valid)
+    w = torch.where(valid, torch.exp(dt), 0.0)
+    sound = torch.cat([torch.zeros(1), torch.cumsum(w, 0)])
+    assert error_in_u(sound, want) <= TOL_U
+    dropped = want.clone()
+    dropped[3 * 4096 + 1:] -= w[2 * 4096:3 * 4096].sum()
+    assert error_in_u(dropped, want) > 100 * TOL_U

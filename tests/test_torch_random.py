@@ -43,7 +43,7 @@ def test_fold_in_matches_jax(tag):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_uniform_matches_jax(shape):
     for seed in SEEDS[:5]:
-        got = prng.uniform(prng.PRNGKey(seed), shape).numpy()
+        got = prng.uniform(prng.PRNGKey(seed), shape, "cpu").numpy()
         want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
         assert got.dtype == np.float32 and got.shape == shape
         np.testing.assert_array_equal(got.view(np.uint32),
@@ -61,11 +61,11 @@ def test_engine_key_schedule_matches_jax():
         ts_, tw = prng.split(tsub)
         np.testing.assert_array_equal(tw.numpy(), _words(jw))
         np.testing.assert_array_equal(
-            prng.uniform(ts_, (513,)).numpy(),
+            prng.uniform(ts_, (513,), "cpu").numpy(),
             np.asarray(jax.random.uniform(js, (513,))))
         for step in (0, 1, 79):
             np.testing.assert_array_equal(
-                prng.uniform(prng.fold_in(tw, step), (257,)).numpy(),
+                prng.uniform(prng.fold_in(tw, step), (257,), "cpu").numpy(),
                 np.asarray(jax.random.uniform(jax.random.fold_in(jw, step),
                                               (257,))))
 
@@ -73,6 +73,6 @@ def test_engine_key_schedule_matches_jax():
 def test_key_words_accept_reference_keys():
     """A reference key (uint32[2] array) is a valid port key as it is."""
     jk = jax.random.PRNGKey(5)
-    got = prng.uniform(np.asarray(jk), (9,)).numpy()
+    got = prng.uniform(np.asarray(jk), (9,), "cpu").numpy()
     np.testing.assert_array_equal(got,
                                   np.asarray(jax.random.uniform(jk, (9,))))
