@@ -6,14 +6,16 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-every kernel against its plain PyTorch version on the card, drives the
-streaming main path (ingest -> index rebuild -> fused-hop walks) at full
-size through ``StreamingEngine.replay_device``, runs weight mode at a
-reduced window, and prints one JSON line per phase. The last three lines
-are the kernels table, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. With
-no CUDA device, or without the package next to it, it exits 2 and prints
-no result.
+every kernel against its plain PyTorch version on the card (the fused
+tiers, ``weight_prefix`` and ``walk_step_tiled``), drives the streaming
+main path (ingest -> index rebuild -> fused-hop walks) at full size
+through ``StreamingEngine.replay_device``, replays the same stream on the
+tiled path, holds the seven first-order layouts to byte-identical walks
+at full width, runs weight mode at a reduced window, and prints one JSON
+line per phase. The last three lines are the kernels table, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
+phase exits non-zero. With no CUDA device, or without the package next
+to it, it exits 2 and prints no result.
 
 The options exist to cut the run for a shorter time limit; every cut
 against the full configuration is printed.
@@ -21,6 +23,7 @@ against the full configuration is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -42,6 +45,15 @@ COMPARE_BIG_LANES = 128
 # walks per batch in the reduced weight-mode phase (at most the main
 # path's own count)
 WEIGHT_WALKS = 1 << 14
+TILED_MODES = (("index", "uniform"), ("index", "linear"),
+               ("index", "exponential"), ("weight", "uniform"),
+               ("weight", "linear"), ("weight", "exponential"))
+# the reference's first-order layouts, which emit identical walks
+LAYOUTS = (("fullwalk", "bucket"), ("grouped", "bucket"),
+           ("grouped", "lexsort"), ("tiled", "bucket"), ("tiled", "lexsort"),
+           ("fused", "bucket"), ("fused", "lexsort"))
+# tasks of exact-fit lanes (hi == 2·TE) compared for walk_step_tiled
+COMPARE_EXACT_TILES = 8
 
 
 def parse_args(argv):
@@ -225,6 +237,352 @@ def profile_batch(engine, batch, wcfg) -> dict:
     return out
 
 
+def walk_step_bound_ms(W: int, sched, staged: int, weight: bool) -> float:
+    """Least device time of one walk_step_tiled launch, by bytes: per lane
+    time, lo, hi and u read (tbase too in weight mode) and four int32
+    written; the task's base block; and every row of each of the
+    ``staged`` distinct TE blocks read once: (ts, dst), plus P(j) and
+    P(j+1) in weight mode."""
+    lane = (9 if weight else 8) * 4
+    row = 16 if weight else 8
+    T = W // sched.tile_walks
+    return (lane * W + 4 * T + row * sched.tile_edges * staged) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def tiled_args(index, tiles, s_node, s_time, u, mode, bias):
+    """Arguments of walk_step_tiled for one hop, as kernels/ops.py builds
+    them; ``tiles`` is (base_blocks, lo, hi)."""
+    E = index.edge_capacity
+    prefix = index.plin if (mode, bias) == ("weight", "linear") \
+        else index.pexp
+    tbase = index.node_tbase[s_node.clamp(0, index.node_capacity - 1).long()]
+    base_blocks, lo, hi = tiles
+    return (index.ns_ts[:E], index.ns_dst[:E], prefix[:E], prefix[1:E + 1],
+            base_blocks, s_time, lo, hi, u, tbase)
+
+
+def exact_fit_tasks(index, sched, rng):
+    """A task table on the real index whose lanes are exact fits
+    (hi == 2·TE): each task stages the panel that ends where its node's
+    region ends. Up to COMPARE_EXACT_TILES tasks over non-empty regions,
+    and one over an empty region at a panel's end (lo == hi == 2·TE).
+    Returns (base_blocks, s_node, s_time, u, lo, hi), or None if the
+    index has no such region."""
+    import torch
+    TW, TE = sched.tile_walks, sched.tile_edges
+    nc = index.node_capacity
+    a = index.node_starts[:nc].long()
+    b = index.node_starts[1:nc + 1].long()
+    fits = (b % TE == 0) & (b >= 2 * TE) & (b - a <= 2 * TE)
+    full = (fits & (b > a)).nonzero()[:, 0].cpu().numpy()
+    empty = (fits & (b == a)).nonzero()[:, 0].cpu().numpy()
+    nodes = list(rng.permutation(full)[:COMPARE_EXACT_TILES]) \
+        + list(rng.permutation(empty)[:1])
+    if not nodes:
+        return None
+    dev = index.ns_ts.device
+    v = torch.as_tensor(nodes, device=dev).repeat_interleave(TW)
+    av, bv = a[v], b[v]
+    lo_t = index.ns_ts[av.clamp(max=index.edge_capacity - 1)]
+    hi_t = index.ns_ts[(bv - 1).clamp(min=0)]
+    frac = torch.as_tensor(rng.uniform(size=v.numel()), device=dev)
+    s_time = (lo_t - 1 + (frac * (hi_t - lo_t + 2).double()).long()) \
+        .to(torch.int32)
+    u = torch.as_tensor(rng.uniform(size=v.numel()).astype("float32"),
+                        device=dev)
+    base = bv - 2 * TE
+    return ((b[torch.as_tensor(nodes, device=dev)] // TE - 2)
+            .to(torch.int32), v.to(torch.int32), s_time, u,
+            (av - base).to(torch.int32), (bv - base).to(torch.int32))
+
+
+def compare_walk_step(index, sched, s_node, s_time, u, rng):
+    """walk_step_tiled vs walk_step_plain for the six (mode, bias): every
+    lane of the hop in index mode; in weight mode the lanes of a subset of
+    its tiles that holds oversize lanes (and exact-fit lanes where the hop
+    has any). Exact-fit tasks built on the same index are compared in
+    every mode too. Returns the readings per mode, the size of the
+    exact-fit tasks, the hop's task table and its clipped (lo, hi)."""
+    import torch
+    from repro_torch.core.scheduler import panel_bounds, tile_table
+    from repro_torch.kernels import walk_step as kw
+    TW, TE = sched.tile_walks, sched.tile_edges
+    tiles = tile_table(index, s_node, sched)
+    lo, hi = panel_bounds(tiles, sched)
+    W = s_node.shape[0]
+    T = W // TW
+    over = tiles.oversize
+    exact = ~over & (hi == 2 * TE)
+    over_t = over.reshape(T, TW).any(1).cpu().numpy()
+    exact_t = exact.reshape(T, TW).any(1).cpu().numpy()
+    picked = set(rng.choice(T, size=min(T, COMPARE_LANES // TW),
+                            replace=False).tolist())
+    n_over = int(over.reshape(T, TW)[sorted(picked)].sum())
+    for t in rng.permutation(over_t.nonzero()[0]).tolist():
+        if n_over >= COMPARE_BIG_LANES:
+            break
+        if t not in picked:
+            picked.add(t)
+            n_over += int(over[t * TW:(t + 1) * TW].sum())
+    picked |= set(rng.permutation(exact_t.nonzero()[0])
+                  [:COMPARE_EXACT_TILES].tolist())
+    sel = torch.as_tensor(sorted(picked), device=s_node.device)
+    lanes = (sel[:, None] * TW + torch.arange(TW, device=sel.device)) \
+        .reshape(-1)
+    crafted = exact_fit_tasks(index, sched, rng)
+    require(crafted is not None, "walk_step_tiled: the index holds no "
+                                 "region that ends at a panel's end")
+    c_base, c_node, c_time, c_u, c_lo, c_hi = crafted
+
+    def check(what, got, want):
+        err = 0
+        for name, g, w in zip(("k", "n", "dst", "ts"), got, want):
+            diff = int((g != w).sum())
+            require(diff == 0, f"walk_step_tiled {what}: {diff} lanes "
+                               f"differ in {name}")
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        return err
+
+    readings = {}
+    for mode, bias in TILED_MODES:
+        kwargs = dict(mode=mode, bias=bias, tile_walks=TW, tile_edges=TE)
+        args = tiled_args(index, (tiles.base_blocks, lo, hi), s_node,
+                          s_time, u, mode, bias)
+        got = kw.walk_step_tiled(*args, **kwargs)
+        if mode == "index":
+            on = torch.arange(W, device=sel.device)
+            want = kw.walk_step_plain(*args, **kwargs)
+        else:
+            on = lanes
+            want = kw.walk_step_plain(
+                *args[:4], tiles.base_blocks[sel],
+                *(x[lanes] for x in args[5:]), **kwargs)
+        err = check(f"{mode}/{bias}", [g[on] for g in got], want)
+        c_args = tiled_args(index, (c_base, c_lo, c_hi), c_node, c_time,
+                            c_u, mode, bias)
+        err = max(err, check(f"{mode}/{bias} exact-fit tasks",
+                             kw.walk_step_tiled(*c_args, **kwargs),
+                             kw.walk_step_plain(*c_args, **kwargs)))
+        n_ov = int(over[on].sum())
+        require(n_ov > 0, f"walk_step_tiled {mode}/{bias}: no oversize "
+                          "lane compared")
+        readings[f"{mode}/{bias}"] = dict(
+            lanes=int(on.numel()), oversize=n_ov,
+            exact_fit=int(exact[on].sum()), max_abs_err=err)
+    crafted = dict(tasks=int(c_base.numel()), lanes=int(c_node.numel()),
+                   empty_at_panel_end=int((c_lo == c_hi).sum()))
+    return readings, crafted, tiles, (lo, hi)
+
+
+def rows_differ(a, b) -> int:
+    """Walks (rows) in which two WalkResults differ."""
+    return int(((a.nodes != b.nodes).any(1) | (a.times != b.times).any(1)
+                | (a.lengths != b.lengths)).sum())
+
+
+def tier_shares(stats) -> dict:
+    """Per-hop dispatch tiers from generate_walks(collect_stats=True):
+    node tiers as shares of occupied nodes, fused tiers as shares of live
+    lanes; means over the hops with live lanes, and hop 0."""
+    import numpy as np
+    from repro_torch.core import scheduler as sc
+    st = stats.cpu().numpy().astype(np.float64)
+    live = st[:, sc.STAT_ALIVE] > 0
+    nodes = np.maximum(st[:, sc.STAT_UNIQUE_NODES], 1)
+    lanes = np.maximum(st[:, sc.STAT_ALIVE], 1)
+    share = dict(solo=st[:, sc.STAT_SOLO] / nodes,
+                 group_smem=st[:, sc.STAT_GROUP_SMEM] / nodes,
+                 group_global=st[:, sc.STAT_GROUP_GLOBAL] / nodes,
+                 fused_small=st[:, sc.STAT_FUSED_SMALL] / lanes,
+                 fused_big=st[:, sc.STAT_FUSED_BIG] / lanes)
+    return dict(mean=({k: float(v[live].mean()) for k, v in share.items()}
+                      if live.any() else None),
+                hop0={k: float(v[0]) for k, v in share.items()},
+                hops_with_live_lanes=int(live.sum()),
+                live_lanes_per_hop=st[:, sc.STAT_ALIVE].astype(int).tolist())
+
+
+@contextlib.contextmanager
+def watch_tiled_bucket(observe):
+    """Within the block, every tiled bucket hop that ``generate_walks``
+    runs also calls ``observe(index, s_node, s_time, s_alive, u, scfg,
+    sched, k, n)`` with that hop's own lanes, draws and picks; the walk
+    loop stays ``generate_walks``' own."""
+    from repro_torch.core import walk_engine as we
+    prologue, step = we._bucket_prologue, we.walk_step
+    alive = []
+
+    def prologue_seen(index, sched, carry):
+        out = prologue(index, sched, carry)
+        alive[:] = [out[4]]
+        return out
+
+    def step_seen(index, s_node, s_time, u, scfg, sched):
+        k, n = step(index, s_node, s_time, u, scfg, sched)
+        observe(index, s_node, s_time, alive[0], u, scfg, sched, k, n)
+        return k, n
+
+    we._bucket_prologue, we.walk_step = prologue_seen, step_seen
+    try:
+        yield
+    finally:
+        we._bucket_prologue, we.walk_step = prologue, step
+
+
+class OversizeShare:
+    """Observer: per hop, the oversize lanes of all lanes and of the live
+    lanes; ``reading`` gives the mean shares over the hops."""
+
+    def __init__(self):
+        self.rows = []
+        self.lanes = 0
+
+    def __call__(self, index, s_node, s_time, s_alive, u, scfg, sched, k,
+                 n):
+        import torch
+        from repro_torch.core.scheduler import tile_table
+        over = tile_table(index, s_node, sched).oversize
+        self.lanes = over.numel()
+        self.rows.append(torch.stack([over.sum(), (over & s_alive).sum(),
+                                      s_alive.sum()]))
+
+    def reading(self) -> dict:
+        import numpy as np
+        import torch
+        r = torch.stack(self.rows).cpu().numpy().astype(np.float64)
+        live = r[:, 2] > 0
+        return dict(of_all_lanes=float(np.mean(r[:, 0] / self.lanes)),
+                    of_live_lanes=float(np.mean(r[live, 1] / r[live, 2]))
+                    if live.any() else None,
+                    hop0_of_live_lanes=float(r[0, 1] / max(r[0, 2], 1)),
+                    hops_with_live_lanes=int(live.sum()))
+
+
+class LinearDisagreements:
+    """Observer: why weight/linear walks differ between tiled and grouped.
+    Each hop's tiled pick is set against the grouped pick of the same
+    lanes and draws. A lane can differ only where the tiled kernel counts
+    S(j) < u·S(hi−1) over a region in which S is not monotone (the
+    grouped binary search then stops at another crossing), so every
+    differing lane must be in-tile with a non-monotone S; ``reading``
+    checks this."""
+
+    def __init__(self):
+        self.differ = self.in_tile = self.non_monotone = self.live = 0
+        self.plin_max = None
+
+    def __call__(self, index, s_node, s_time, s_alive, u, scfg, sched, k,
+                 n):
+        import torch
+        from repro_torch.core.samplers import pick_in_neighborhood
+        from repro_torch.core.scheduler import tile_table
+        from repro_torch.core.temporal_index import temporal_cutoff
+        tiles = tile_table(index, s_node, sched)
+        c = temporal_cutoff(index, tiles.a, tiles.b, s_time)
+        k_g = pick_in_neighborhood(index, scfg, c, tiles.b, u, s_node)
+        ok = s_alive & (n > 0)
+        d = (ok & (k != k_g)).nonzero()[:, 0]
+        self.live += int(ok.sum())
+        self.differ += int(d.numel())
+        self.in_tile += int((~tiles.oversize[d]).sum())
+        self.plin_max = float(index.plin.max())
+        if d.numel():
+            span = 2 * sched.tile_edges
+            cd, bd = c[d].long(), tiles.b[d].long()
+            j = cd[:, None] + torch.arange(span, device=d.device)
+            inside = j < bd[:, None]
+            jc = j.clamp(max=index.edge_capacity - 1)
+            delta = (index.ns_ts[cd.clamp(max=index.edge_capacity - 1)]
+                     - index.node_tbase[s_node[d].long()]).to(torch.float32)
+            sj = (index.plin[jc + 1] - index.plin[cd][:, None]) \
+                - (jc + 1 - cd[:, None]).to(torch.float32) * delta[:, None]
+            down = (sj[:, 1:] < sj[:, :-1]) & inside[:, 1:]
+            self.non_monotone += int(down.any(1).sum())
+
+    def reading(self) -> dict:
+        require(self.in_tile == self.differ
+                and self.non_monotone == self.differ,
+                f"weight/linear: {self.differ} picks differ, "
+                f"{self.in_tile} in-tile, {self.non_monotone} over a "
+                "non-monotone S")
+        return dict(live_picks=self.live, picks_differ=self.differ,
+                    in_tile=self.in_tile, non_monotone_s=self.non_monotone,
+                    plin_max=self.plin_max)
+
+
+def paths_agree(index, wcfg):
+    """The seven layouts from one key at full width: index/exponential
+    walks byte-identical; weight mode, tiled against grouped. The tiled
+    bucket runs carry an observer (``with_observer``, so their seconds are
+    no path timing): the index one reads the oversize share per hop, the
+    weight/linear one the cause of any pick that differs from grouped.
+    Returns the readings, the oversize share and the grouped-bucket run's
+    per-hop ``dispatch_stats``."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs.base import SamplerConfig, SchedulerConfig
+    from repro_torch.core.validation import validate_walks
+    from repro_torch.core.walk_engine import generate_walks
+    key = prng.PRNGKey(11)
+
+    def run(scfg, path, regroup, stats=False, observe=None):
+        with (watch_tiled_bucket(observe) if observe
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = generate_walks(index, key, wcfg, scfg,
+                               SchedulerConfig(path=path, regroup=regroup),
+                               collect_stats=stats)
+            torch.cuda.synchronize()
+        return w, time.perf_counter() - t0
+
+    scfg = SamplerConfig(bias="exponential", mode="index")
+    ref, secs = run(scfg, *LAYOUTS[0])
+    rep = validate_walks(index, ref)
+    require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+            f"paths_agree: fullwalk hop validity {rep.hop_valid_frac}")
+    layouts = {"fullwalk-bucket": dict(seconds=secs, walks_differ=0)}
+    stats = None
+    share = OversizeShare()
+    for path, regroup in LAYOUTS[1:]:
+        keep = (path, regroup) == ("grouped", "bucket")
+        watch = (path, regroup) == ("tiled", "bucket")
+        w, secs = run(scfg, path, regroup, stats=keep,
+                      observe=share if watch else None)
+        if keep:
+            stats = w.stats
+        layouts[f"{path}-{regroup}"] = dict(seconds=secs,
+                                            walks_differ=rows_differ(ref, w),
+                                            with_observer=watch)
+        del w
+    bad = {k: v["walks_differ"] for k, v in layouts.items()
+           if v["walks_differ"]}
+    require(not bad, f"paths_agree: walks differ from fullwalk: {bad}")
+    weight = {}
+    for bias in ("linear", "exponential"):
+        ws = SamplerConfig(bias=bias, mode="weight")
+        cause = LinearDisagreements() if bias == "linear" else None
+        g, g_secs = run(ws, "grouped", "bucket")
+        t, t_secs = run(ws, "tiled", "bucket", observe=cause)
+        rg, rt = validate_walks(index, g), validate_walks(index, t)
+        require(rg.hop_valid_frac == 1.0 and rt.hop_valid_frac == 1.0,
+                f"paths_agree weight/{bias}: hop validity grouped "
+                f"{rg.hop_valid_frac}, tiled {rt.hop_valid_frac}")
+        weight[bias] = dict(walks_differ=rows_differ(g, t),
+                            grouped_seconds=g_secs, tiled_seconds=t_secs,
+                            with_observer=cause is not None,
+                            hop_valid_frac=rt.hop_valid_frac,
+                            num_hops=rt.num_hops)
+        del g, t
+        if cause is not None:
+            weight[bias]["cause"] = cause.reading()
+    return dict(walks=wcfg.num_walks, max_length=wcfg.max_length,
+                window_edges=int(index.num_edges), index_exponential=layouts,
+                hop_valid_frac=rep.hop_valid_frac, num_hops=rep.num_hops,
+                weight_tiled_vs_grouped=weight), share.reading(), stats
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
@@ -249,6 +607,7 @@ def main(argv=None) -> int:
                                             powerlaw_temporal_graph)
     from repro_torch.kernels import fused_step as kf
     from repro_torch.kernels import runtime
+    from repro_torch.kernels import walk_step as kw
     from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
                                                    weight_prefix,
                                                    weight_prefix_plain)
@@ -334,6 +693,18 @@ def main(argv=None) -> int:
          lanes=W, tier_l_lanes=int(split.big.sum()),
          window_edges=int(idx.num_edges))
 
+    # walk_step_tiled against its plain version on the same hop's lanes
+    sched_t = SchedulerConfig(path="tiled", regroup="bucket")
+    cmp_tiled, exact_tasks, tiles, (lo_t, hi_t) = compare_walk_step(
+        idx, sched_t, s_node, s_time, u, rng)
+    emit("walk_step_vs_plain", modes=cmp_tiled, exact_fit_tasks=exact_tasks,
+         lanes=W,
+         oversize_lanes=int(tiles.oversize.sum()),
+         exact_fit_lanes=int((~tiles.oversize
+                              & (hi_t == 2 * sched_t.tile_edges)).sum()),
+         tile_walks=sched_t.tile_walks, tile_edges=sched_t.tile_edges,
+         window_edges=int(idx.num_edges))
+
     # timings at the main path's shapes (index mode, exponential bias)
     out = tuple(torch.empty(W, dtype=torch.int32, device=dev)
                 for _ in range(4))
@@ -341,7 +712,13 @@ def main(argv=None) -> int:
     args_s = (split.base_blocks, split.a, split.b, split.big, s_time, u,
               code_exp, tbase, idx.ns_ts[:E], idx.ns_dst[:E], idx.pexp,
               idx.plin)
+    args_ws = tiled_args(idx, (tiles.base_blocks, lo_t, hi_t), s_node,
+                         s_time, u, "index", "exponential")
+    kw_ws = dict(mode="index", bias="exponential",
+                 tile_walks=sched_t.tile_walks, tile_edges=sched_t.tile_edges)
     timed = {
+        "walk_step_tiled": (lambda: kw.walk_step_tiled(*args_ws, **kw_ws),
+                            ("walk_step_tiled_kernel",)),
         "fused_tier_s": (lambda: kf.fused_tier_s(
             *args_s, mode="index", tile_walks=sched.tile_walks,
             tile_edges=sched.tile_edges, out=out), ("fused_tier_s_kernel",)),
@@ -367,6 +744,7 @@ def main(argv=None) -> int:
     plain_ms = cuda_ms(lambda: kf.fused_step_plain(*plain_args,
                                                    mode="index"), reps=3)
     plain_wp = cuda_ms(lambda: weight_prefix_plain(dt, in_range))
+    plain_ws = cuda_ms(lambda: kw.walk_step_plain(*args_ws, **kw_ws), reps=3)
     w_exp = torch.where(in_range, torch.exp(dt), 0.0)
     lib_wp = cuda_ms(lambda: torch.cumsum(w_exp, 0))
     n_big = int(split.big.sum())
@@ -379,7 +757,12 @@ def main(argv=None) -> int:
     bound_s = (n_small * lane_io + live_s * 8 + T * 4) / HBM_BYTES_PER_S * 1e3
     bound_l = (n_big * lane_io + live_l * 8) / HBM_BYTES_PER_S * 1e3
     bound_wp = (E * 5 + (E + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p
+    staged = torch.unique(torch.cat([tiles.base_blocks,
+                                     tiles.base_blocks + 1])).numel()
+    bound_ws = walk_step_bound_ms(W, sched_t, staged,
+                                  weight=kw_ws["mode"] == "weight")
+    del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p, tiles, args_ws
+    del lo_t, hi_t
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full size ------------------------------
@@ -423,7 +806,49 @@ def main(argv=None) -> int:
     del engine, walks
     torch.cuda.empty_cache()
 
-    # ---- phase 4: weight mode, linear and exponential, reduced window -----
+    # ---- phase 4: the tiled path at full size -----------------------------
+    cfg_t = EngineConfig(window=cfg.window, sampler=scfg, scheduler=sched_t)
+    engine = StreamingEngine(cfg_t, B)
+    runtime.reset_launches()
+    stats, walks, secs = engine.replay_device(batches, wcfg,
+                                              return_walks=True)
+    launches_t = dict(runtime.LAUNCHES)
+    hops_done = float(np.sum(args.walks * (stats.mean_len.astype(np.float64)
+                                           - 1.0)))
+    rep = validate_walks(engine.state.index, WalkResult(
+        *(torch.as_tensor(x, device=dev)
+          for x in (walks.nodes, walks.times, walks.lengths))))
+    del walks
+    profile_t = profile_batch(engine, batches[-1], wcfg)
+    index_t = engine.state.index
+    emit("tiled_path", seconds=secs, batches=K, walks_per_batch=args.walks,
+         max_length=args.length,
+         edges_per_s=int(stats.ingested[-1]) / secs,
+         walks_per_s=K * args.walks / secs, hops_per_s=hops_done / secs,
+         hop_valid_frac=rep.hop_valid_frac,
+         walk_valid_frac=rep.walk_valid_frac, num_hops_checked=rep.num_hops,
+         mean_len=stats.mean_len.tolist(), launches=launches_t, cuts=cuts)
+    emit("tiled_path_profile", **profile_t)
+    require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+            f"tiled path: hop validity {rep.hop_valid_frac}")
+    require(launches_t["walk_step_tiled"] == hops_per_batch * K,
+            f"walk_step_tiled launches {launches_t['walk_step_tiled']} != "
+            "hops x batches")
+    require(launches_t["weight_prefix"] == 2 * K,
+            f"weight_prefix launches {launches_t['weight_prefix']} != 2 x K")
+    require(launches_t["fused_tier_s"] == launches_t["fused_tier_l"] == 0,
+            f"the tiled path launched the fused kernels: {launches_t}")
+
+    # ---- phase 5: every layout, one key, full width -----------------------
+    agree, shares, tier_stats = paths_agree(index_t, wcfg)
+    emit("tiled_path_oversize", path="tiled-bucket",
+         oversize_share=shares)
+    emit("paths_agree", **agree)
+    emit("dispatch_stats", path="grouped-bucket", **tier_shares(tier_stats))
+    del engine, index_t, tier_stats
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: weight mode, linear and exponential, reduced window -----
     wn, wb, wK = 1 << 16, 1 << 18, 4
     wg = powerlaw_temporal_graph(wn, wb * wK, skew=1.2, t_max=10_000_000,
                                  seed=1)
@@ -446,7 +871,8 @@ def main(argv=None) -> int:
               for x in (wk.nodes, wk.times, wk.lengths))))
         require(r.num_hops > 0 and r.hop_valid_frac == 1.0,
                 f"weight/{bias}: hop validity {r.hop_valid_frac}")
-        require(all(v > 0 for v in got_launches.values()),
+        require(all(got_launches[k] > 0 for k in
+                    ("fused_tier_s", "fused_tier_l", "weight_prefix")),
                 f"weight/{bias}: a kernel was not launched: {got_launches}")
         weight_runs[bias] = dict(seconds=sec, hop_valid_frac=r.hop_valid_frac,
                                  num_hops=r.num_hops, launches=got_launches)
@@ -454,29 +880,31 @@ def main(argv=None) -> int:
          cuts=dict(nodes=wn, edges_per_batch=wb, batches=wK,
                    edge_capacity=1 << 20, walks=weight_walks))
 
-    # small replay: the card's path equals the CPU plain versions byte for
-    # byte in index mode (no float prefix is read there)
+    # small replay: the card's kernel paths equal the CPU plain versions
+    # byte for byte in index mode (no float prefix is read there)
     sg = powerlaw_temporal_graph(512, 1 << 15, skew=1.2, t_max=100_000,
                                  seed=2)
     sb = list(chronological_batches(sg, 4))
-    cfg_s = EngineConfig(
-        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
-                            node_capacity=512),
-        sampler=SamplerConfig(bias="exponential", mode="index"),
-        scheduler=SchedulerConfig(path="fused", tile_walks=64,
-                                  tile_edges=256))
     wcfg_s = WalkConfig(num_walks=1024, max_length=16)
-    res = {}
-    for d in ("cuda", "cpu"):
-        st, wk, _ = StreamingEngine(cfg_s, 1 << 13, device=d).replay_device(
-            sb, wcfg_s, return_walks=True)
-        res[d] = (st, wk)
-    same = all(np.array_equal(a, b) for a, b in zip(res["cuda"][0],
-                                                    res["cpu"][0])) and \
-        all(np.array_equal(a, b) for a, b in zip(res["cuda"][1][:3],
-                                                 res["cpu"][1][:3]))
-    require(same, "small replay: card and CPU walks differ")
-    emit("small_replay_cuda_equals_cpu", ok=True)
+    for path in ("fused", "tiled"):
+        cfg_s = EngineConfig(
+            window=WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
+                                node_capacity=512),
+            sampler=SamplerConfig(bias="exponential", mode="index"),
+            scheduler=SchedulerConfig(path=path, tile_walks=64,
+                                      tile_edges=256))
+        res = {}
+        for d in ("cuda", "cpu"):
+            st, wk, _ = StreamingEngine(cfg_s, 1 << 13,
+                                        device=d).replay_device(
+                sb, wcfg_s, return_walks=True)
+            res[d] = (st, wk)
+        same = all(np.array_equal(a, b) for a, b in zip(res["cuda"][0],
+                                                        res["cpu"][0])) and \
+            all(np.array_equal(a, b) for a, b in zip(res["cuda"][1][:3],
+                                                     res["cpu"][1][:3]))
+        require(same, f"small replay ({path}): card and CPU walks differ")
+    emit("small_replay_cuda_equals_cpu", ok=True, paths=["fused", "tiled"])
 
     # ---- kernels line, card line, contract line --------------------------
     kernels = [
@@ -505,6 +933,13 @@ def main(argv=None) -> int:
              max_abs_err=wp_max_err,
              **times["weight_prefix"], plain_ms=plain_wp, bound_ms=bound_wp,
              bound_by="bytes", library_ms=lib_wp),
+        dict(name="walk_step_tiled", route="cuda",
+             source="src/repro_torch/csrc/walk_step.cu",
+             replaces="src/repro/kernels/walk_step.py:175",
+             launches=launches_t["walk_step_tiled"],
+             max_abs_err=max(r["max_abs_err"] for r in cmp_tiled.values()),
+             **times["walk_step_tiled"], plain_ms=plain_ws, plain_lanes=W,
+             bound_ms=bound_ws, bound_by="bytes", library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

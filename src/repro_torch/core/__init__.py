@@ -1,2 +1,22 @@
-"""The streaming walk sampler: edge store, dual index, samplers, regroup,
-fused-hop walk engine, sliding window and streaming replay."""
+"""The streaming walk sampler: edge store, dual index, samplers, dispatch
+plane and regroup, the walk engine (fullwalk, grouped, tiled and fused
+paths), sliding window and streaming replay."""
+from repro_torch.core.edge_store import (
+    EdgeBatch,
+    EdgeStore,
+    empty_store,
+    make_batch,
+    stack_batches,
+    store_from_arrays,
+)
+from repro_torch.core.streaming import StreamingEngine, replay_scan
+from repro_torch.core.temporal_index import TemporalIndex, build_index
+from repro_torch.core.walk_engine import WalkResult, generate_walks
+from repro_torch.core.window import WindowState, ingest, init_window
+
+__all__ = [
+    "EdgeBatch", "EdgeStore", "empty_store", "make_batch", "stack_batches",
+    "store_from_arrays", "StreamingEngine", "replay_scan", "TemporalIndex",
+    "build_index", "WalkResult", "generate_walks", "WindowState", "ingest",
+    "init_window",
+]

@@ -4,7 +4,9 @@
   i ∈ [0, n): uniform ⌊u·n⌋, linear (w_i ∝ i+1, paper eq. 2) and
   exponential (w_i ∝ e^i, paper eq. 3, exact below n = 80 and log-domain
   asymptotic above).
-* ``weight`` mode — exact inverse transform over the index's prefix arrays.
+* ``weight`` mode — exact inverse transform over the index's prefix arrays
+  (``weighted_pick_exp``, ``weighted_pick_linear``), by a binary search
+  with the reference's fixed step count.
 
 Every expression keeps the reference's float32 operation order, one
 PyTorch op per reference op, so the picks are bit-identical. The square
@@ -130,6 +132,57 @@ def weighted_pick_exp(pexp: torch.Tensor, c: torch.Tensor, b: torch.Tensor,
     fallback = c + index_uniform(u, b - c)
     k = torch.where(total > 0, k, fallback)
     return torch.minimum(torch.maximum(k, c), torch.maximum(b - 1, c))
+
+
+def weighted_pick_linear(plin: torch.Tensor, ns_ts: torch.Tensor,
+                         node_tbase_at: torch.Tensor, c: torch.Tensor,
+                         b: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse CDF over w_k = ts_k − ts_c + 1 via the dual-prefix trick:
+    S(k) = (plin[k+1] − plin[c]) − (k+1−c)·δ, δ = ts_c − t_base(v),
+    searched for the smallest k in [c, b) with S(k) ≥ u·S(b−1); uniform
+    over [c, b) when the mass is not positive."""
+    E = ns_ts.shape[0]
+    cl = c.long()
+    ts_c = ns_ts[cl.clamp(0, E - 1)]
+    delta = (ts_c - node_tbase_at).to(torch.float32)
+    pl_c = plin[cl]
+    total = (plin[b.long()] - pl_c) - (b - c).to(torch.float32) * delta
+    r = u * total
+    steps = max(1, math.ceil(math.log2(max(E + 1, 2))) + 1)
+    lo = c.to(torch.int32)
+    hi = b.to(torch.int32)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        s_mid = (plin[(mid + 1).clamp(0, E).long()] - pl_c) \
+            - (mid + 1 - c).to(torch.float32) * delta
+        pred = s_mid >= r
+        open_ = lo < hi
+        lo, hi = (torch.where(open_ & ~pred, mid + 1, lo),
+                  torch.where(open_ & pred, mid, hi))
+    k = torch.where(total > 0, lo, c + index_uniform(u, b - c))
+    return torch.minimum(torch.maximum(k, c), torch.maximum(b - 1, c))
+
+
+def pick_in_neighborhood(index, cfg: SamplerConfig, c: torch.Tensor,
+                         b: torch.Tensor, u: torch.Tensor,
+                         node: torch.Tensor) -> torch.Tensor:
+    """Pick a position k ∈ [c, b) under the configured bias. Valid only
+    where b > c (the caller masks empty neighbourhoods)."""
+    n = b - c
+    if cfg.mode == "index":
+        return c + index_pick(cfg.bias, u, n)
+    if cfg.mode == "weight":
+        if cfg.bias == "uniform":
+            return c + index_uniform(u, n)
+        if cfg.bias == "exponential":
+            return weighted_pick_exp(index.pexp, c, b, u)
+        if cfg.bias == "linear":
+            nc = index.node_capacity
+            tbase = index.node_tbase[node.clamp(0, nc - 1).long()]
+            return weighted_pick_linear(index.plin, index.ns_ts, tbase, c,
+                                        b, u)
+        raise ValueError(f"unknown bias {cfg.bias!r}")
+    raise ValueError(f"unknown sampler mode {cfg.mode!r}")
 
 
 def pick_start_edges(index, cfg: SamplerConfig,

@@ -57,7 +57,7 @@ class TemporalIndex(NamedTuple):
         return self.ns_order.shape[0]
 
 
-def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+def pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """int64 key ordering lexicographically by (hi, lo) for int32 inputs."""
     return (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + (1 << 31))
 
@@ -77,7 +77,7 @@ def build_index(store: EdgeStore, node_capacity: int,
     valid = torch.arange(E, dtype=torch.int32, device=dev) < n_valid
 
     # ---- sort 1: (src, ts) — padding (src == nc, ts == TS_PAD) sorts last
-    ns_order64 = _stable_argsort(_pair_key(store.src, store.ts))
+    ns_order64 = _stable_argsort(pair_key(store.src, store.ts))
     ns_order = ns_order64.to(torch.int32)
     ns_src = store.src[ns_order64]
     ns_dst = store.dst[ns_order64]
@@ -137,7 +137,7 @@ def build_index(store: EdgeStore, node_capacity: int,
     # ---- sort 2: (src, dst, ts) — adjacency view -------------------------
     by_ts = _stable_argsort(store.ts)
     adj_order64 = by_ts[_stable_argsort(
-        _pair_key(store.src[by_ts], store.dst[by_ts]))]
+        pair_key(store.src[by_ts], store.dst[by_ts]))]
     adj_order = adj_order64.to(torch.int32)
     adj_dst = store.dst[adj_order64]
 

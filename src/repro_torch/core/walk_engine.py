@@ -1,11 +1,20 @@
 """Temporal random-walk engine (paper §2.4), PyTorch port of
-core/walk_engine.py for the fused path.
+core/walk_engine.py for first-order walks.
 
-The port runs ``SchedulerConfig(path="fused", regroup="bucket")``: each
-hop regroups lanes by current node (the permutation is carried across
-hops, DESIGN.md §10), then one fused hop — temporal cutoff, per-lane
-biased draw and neighbour gather — runs in the Hopper kernels
-(kernels/fused_step.py). Other paths raise "not yet ported".
+Execution paths (``SchedulerConfig.path``), as in the reference:
+
+* ``fullwalk`` — every walk advances independently, in walk order.
+* ``grouped`` — each hop regroups lanes by (node, time); equal runs share
+  one temporal cutoff, computed at the run's head.
+* ``tiled`` — grouped lanes, with the hop's search and sample in the
+  ``walk_step_tiled`` kernel (kernels/ops.py); oversize lanes take the
+  plain-torch pick.
+* ``fused`` — grouped lanes, with the whole hop in the fused kernels
+  (kernels/fused_step.py).
+
+The regroup (``SchedulerConfig.regroup``) is ``bucket`` — the permutation
+is carried across hops (DESIGN.md §10) — or ``lexsort``, a fresh stable
+sort by (node, time) and its inverse every hop.
 
 Random draws are generated in walk order and indexed through the
 lane→walk map, with the reference's key schedule: ``split`` into
@@ -15,16 +24,27 @@ the reference's for the same key, on every path of the reference.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch import random as prng
 from repro_torch.configs.base import SamplerConfig, SchedulerConfig, WalkConfig
 from repro_torch.core import scheduler as sched
-from repro_torch.core.samplers import BIAS_CODES, bias_code, pick_start_edges
-from repro_torch.core.temporal_index import TemporalIndex
+from repro_torch.core.samplers import (
+    BIAS_CODES,
+    bias_code,
+    pick_in_neighborhood,
+    pick_start_edges,
+)
+from repro_torch.core.temporal_index import (
+    TemporalIndex,
+    pair_key,
+    node_range,
+    temporal_cutoff,
+)
 from repro_torch.kernels.fused_step import fused_walk_step
+from repro_torch.kernels.ops import walk_step
 
 NODE_PAD = -1          # sentinel in emitted walks beyond walk length
 
@@ -34,8 +54,8 @@ _CAP = "unsupported sampler capability: "
 def check_capabilities(scfg: SamplerConfig, path: str) -> None:
     """Validate a (sampler config, path) combination for the port, with the
     reference's refusal messages (core/walk_engine.py::check_capabilities).
-    Raises ``ValueError`` when refused, ``NotImplementedError`` for a path
-    the port does not run yet."""
+    Raises ``ValueError`` when refused, ``NotImplementedError`` for what
+    the port does not run yet: alias tables and node2vec."""
     if scfg.bias not in BIAS_CODES:
         raise ValueError(
             _CAP + f"unknown bias {scfg.bias!r} "
@@ -68,18 +88,19 @@ def check_capabilities(scfg: SamplerConfig, path: str) -> None:
                 _CAP + "path='tiled' does not support node2vec "
                 "second-order bias (the walk-step kernel draws first-"
                 "order only); use 'fullwalk'|'grouped'")
-    if path != "fused":
-        raise NotImplementedError(
-            f"scheduler path {path!r} is not yet ported to PyTorch; the "
-            "port runs path='fused'")
     if scfg.bias == "table":
-        raise NotImplementedError("bias='table' is not yet ported")
+        raise NotImplementedError(
+            "bias='table' (alias tables) is not yet ported to PyTorch")
+    if scfg.node2vec_p != 1.0 or scfg.node2vec_q != 1.0:
+        raise NotImplementedError(
+            "node2vec second-order bias is not yet ported to PyTorch")
 
 
 class WalkResult(NamedTuple):
     nodes: torch.Tensor     # int32[W, L+1], NODE_PAD beyond length
     times: torch.Tensor     # int32[W, L+1]
     lengths: torch.Tensor   # int32[W] number of nodes recorded
+    stats: Optional[torch.Tensor] = None   # float32[hops, NUM_STATS]
 
 
 class _Carry(NamedTuple):
@@ -145,6 +166,47 @@ def start_walks(index: TemporalIndex, wcfg: WalkConfig, scfg: SamplerConfig,
                   alive.to(torch.int32))
 
 
+# ---------------------------------------------------------------------------
+# Layouts: fullwalk, lexsort, bucket
+# ---------------------------------------------------------------------------
+
+
+def _segment_cutoff(index: TemporalIndex, s_node, s_time):
+    """(b, c) for lanes grouped by (node, time): Γ_t(v) = [c, b). Segment
+    heads are re-derived from the order — contiguous equal (node, time)
+    runs share the cutoff computed at their head — so any permutation is
+    correct."""
+    W = s_node.shape[0]
+    pad = s_node.new_full((1,), -2)
+    head = (s_node != torch.cat([pad, s_node[:-1]])) \
+        | (s_time != torch.cat([pad, s_time[:-1]]))
+    seg_id = torch.cumsum(head.to(torch.int32), 0) - 1
+    a, b = node_range(index, s_node)
+    c_head = temporal_cutoff(index, a, b, s_time)
+    c = torch.zeros(W, dtype=torch.int32, device=s_node.device).scatter_reduce(
+        0, seg_id.long(), torch.where(head, c_head, 0), "amax")
+    return b, c[seg_id.long()]
+
+
+def _lexsort_prologue(index: TemporalIndex, carry: _Carry):
+    """``jnp.lexsort((cur_time, node_key))``: the stable order by (node,
+    time), dead lanes last. Returns the permutation and the permuted
+    per-lane state."""
+    node_key = torch.where(carry.alive, carry.cur_node,
+                           index.node_capacity + 1)
+    perm = torch.sort(pair_key(node_key, carry.cur_time),
+                      stable=True).indices
+    return (perm, carry.cur_node[perm], carry.cur_time[perm],
+            carry.prev_node[perm], carry.alive[perm])
+
+
+def _unsort(perm: torch.Tensor, *xs):
+    """Lane-order arrays back in walk order."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return tuple(x[inv] for x in xs)
+
+
 def _bucket_prologue(index: TemporalIndex, sched_cfg: SchedulerConfig,
                      carry: _Carry):
     """Regroup lanes by current node and permute the per-lane state."""
@@ -154,6 +216,19 @@ def _bucket_prologue(index: TemporalIndex, sched_cfg: SchedulerConfig,
                               time_subsort=sched_cfg.regroup_time).long()
     return (carry.lane[pp], carry.cur_node[pp], carry.cur_time[pp],
             carry.prev_node[pp], carry.alive[pp])
+
+
+def _advance(carry: _Carry, step: int, next_node, next_time,
+             has_next) -> _Carry:
+    """Advance with lanes in walk order (fullwalk / lexsort layouts)."""
+    carry.nodes[:, step + 1] = torch.where(has_next, next_node, NODE_PAD)
+    carry.times[:, step + 1] = torch.where(has_next, next_time, NODE_PAD)
+    return carry._replace(
+        cur_node=torch.where(has_next, next_node, carry.cur_node),
+        cur_time=torch.where(has_next, next_time, carry.cur_time),
+        prev_node=torch.where(has_next, carry.cur_node, carry.prev_node),
+        alive=has_next,
+        lengths=carry.lengths + has_next.to(torch.int32))
 
 
 def _advance_lanes(carry: _Carry, lane, step: int, s_node, s_time, s_prev,
@@ -172,46 +247,153 @@ def _advance_lanes(carry: _Carry, lane, step: int, s_node, s_time, s_prev,
         lengths=lengths)
 
 
-def _fused_draws(scfg: SamplerConfig, hop_key, order: torch.Tensor):
-    """Per-lane (bias code, uniform) in lane order: the draws are made in
-    walk order and indexed through ``order``, so they do not depend on the
-    lane layout."""
-    W = order.shape[0]
-    code = torch.full((W,), bias_code(scfg.bias), dtype=torch.int32,
-                      device=order.device)
-    return code, prng.uniform(hop_key, (W,), order.device)[order.long()]
+# ---------------------------------------------------------------------------
+# One hop per (path, regroup)
+# ---------------------------------------------------------------------------
+
+
+def _draws(hop_key, order: torch.Tensor) -> torch.Tensor:
+    """Per-lane uniforms in lane order: drawn in walk order and indexed
+    through ``order``, so they do not depend on the lane layout."""
+    return prng.uniform(hop_key, (order.shape[0],), order.device)[
+        order.long()]
+
+
+def _gather(index: TemporalIndex, k: torch.Tensor):
+    k = k.clamp(0, index.edge_capacity - 1).long()
+    return index.ns_dst[k], index.ns_ts[k]
+
+
+def _hop_fullwalk(index, scfg, sched_cfg, carry: _Carry, step: int,
+                  hop_key) -> _Carry:
+    """Every walk advances on its own, in walk order."""
+    a, b = node_range(index, carry.cur_node)
+    c = temporal_cutoff(index, a, b, carry.cur_time)
+    u = prng.uniform(hop_key, (carry.cur_node.shape[0],),
+                     carry.cur_node.device)
+    k = pick_in_neighborhood(index, scfg, c, b, u, carry.cur_node)
+    return _advance(carry, step, *_gather(index, k),
+                    carry.alive & (b - c > 0))
+
+
+def _hop_grouped(index, scfg, sched_cfg, carry: _Carry, step: int,
+                 hop_key) -> _Carry:
+    """Fresh stable sort by (node, time) + inverse, shared cutoffs."""
+    perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
+    b, c = _segment_cutoff(index, s_node, s_time)
+    k = pick_in_neighborhood(index, scfg, c, b, _draws(hop_key, perm), s_node)
+    nn, nt = _gather(index, k)
+    return _advance(carry, step, *_unsort(perm, nn, nt,
+                                          s_alive & (b - c > 0)))
+
+
+def _hop_grouped_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
+                        hop_key) -> _Carry:
+    """Carried bucket regroup, shared cutoffs (the reference's default)."""
+    lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
+        index, sched_cfg, carry)
+    b, c = _segment_cutoff(index, s_node, s_time)
+    k = pick_in_neighborhood(index, scfg, c, b, _draws(hop_key, lane), s_node)
+    nn, nt = _gather(index, k)
+    return _advance_lanes(carry, lane, step, s_node, s_time, s_prev, nn, nt,
+                          s_alive & (b - c > 0))
+
+
+def _hop_tiled(index, scfg, sched_cfg, carry: _Carry, step: int,
+               hop_key) -> _Carry:
+    """Lexsort layout with the ``walk_step_tiled`` kernel."""
+    perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
+    k, n = walk_step(index, s_node, s_time, _draws(hop_key, perm), scfg,
+                     sched_cfg)
+    nn, nt = _gather(index, k)
+    return _advance(carry, step, *_unsort(perm, nn, nt, s_alive & (n > 0)))
+
+
+def _hop_tiled_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
+                      hop_key) -> _Carry:
+    """Bucket layout with the ``walk_step_tiled`` kernel."""
+    lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
+        index, sched_cfg, carry)
+    k, n = walk_step(index, s_node, s_time, _draws(hop_key, lane), scfg,
+                     sched_cfg)
+    nn, nt = _gather(index, k)
+    return _advance_lanes(carry, lane, step, s_node, s_time, s_prev, nn, nt,
+                          s_alive & (n > 0))
+
+
+def _fused_codes(scfg: SamplerConfig, hop_key, order: torch.Tensor):
+    """Per-lane (bias code, uniform) in lane order for the fused kernels."""
+    code = torch.full((order.shape[0],), bias_code(scfg.bias),
+                      dtype=torch.int32, device=order.device)
+    return code, _draws(hop_key, order)
+
+
+def _hop_fused(index, scfg, sched_cfg, carry: _Carry, step: int,
+               hop_key) -> _Carry:
+    """Lexsort layout through the fused kernels."""
+    perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
+    code, u = _fused_codes(scfg, hop_key, perm)
+    out = fused_walk_step(index, s_node, s_time, code, u, scfg.mode,
+                          sched_cfg)
+    return _advance(carry, step, *_unsort(perm, out.dst, out.ts,
+                                          s_alive & (out.n > 0)))
 
 
 def _hop_fused_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
-                      hop_key):
-    """Bucket-regrouped lanes through the fused kernels (DESIGN.md §14)."""
+                      hop_key) -> _Carry:
+    """Bucket layout through the fused kernels (DESIGN.md §14)."""
     lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
         index, sched_cfg, carry)
-    code, u = _fused_draws(scfg, hop_key, lane)
+    code, u = _fused_codes(scfg, hop_key, lane)
     out = fused_walk_step(index, s_node, s_time, code, u, scfg.mode,
                           sched_cfg)
-    has_next = s_alive & (out.n > 0)
     return _advance_lanes(carry, lane, step, s_node, s_time, s_prev,
-                          out.dst, out.ts, has_next)
+                          out.dst, out.ts, s_alive & (out.n > 0))
+
+
+# (path, bucket regroup) -> hop; fullwalk has no regroup
+HOPS = {
+    ("fullwalk", True): _hop_fullwalk,
+    ("fullwalk", False): _hop_fullwalk,
+    ("grouped", True): _hop_grouped_bucket,
+    ("grouped", False): _hop_grouped,
+    ("tiled", True): _hop_tiled_bucket,
+    ("tiled", False): _hop_tiled,
+    ("fused", True): _hop_fused_bucket,
+    ("fused", False): _hop_fused,
+}
 
 
 def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
-                   scfg: SamplerConfig, sched_cfg: SchedulerConfig
-                   ) -> WalkResult:
+                   scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                   collect_stats: bool = False) -> WalkResult:
     """Generate ``wcfg.num_walks`` temporal walks of ≤ ``max_length`` hops
-    on the index's device. ``key`` is a ``repro_torch.random`` key."""
+    on the index's device. ``key`` is a ``repro_torch.random`` key. With
+    ``collect_stats``, ``WalkResult.stats`` holds ``dispatch_stats`` of
+    every hop, float32[hops, NUM_STATS]."""
     check_capabilities(scfg, sched_cfg.path)
-    if sched_cfg.regroup != "bucket":
-        raise NotImplementedError(
-            f"regroup {sched_cfg.regroup!r} is not yet ported to PyTorch; "
-            "the port runs regroup='bucket'")
+    if sched_cfg.regroup not in ("bucket", "lexsort"):
+        raise ValueError(f"unknown regroup {sched_cfg.regroup!r}")
+    try:
+        hop = HOPS[sched_cfg.path, sched_cfg.regroup == "bucket"]
+    except KeyError:
+        raise ValueError(
+            f"unknown scheduler path {sched_cfg.path!r}") from None
     start_key, walk_key = prng.split(key)
     carry = start_walks(index, wcfg, scfg, start_key)
     edges = wcfg.start_mode == "edges"
     hops = wcfg.max_length - 1 if edges else wcfg.max_length
+    stats = []
     for step in range(hops):
-        carry = _hop_fused_bucket(index, scfg, sched_cfg, carry,
-                                  step + int(edges),
-                                  prng.fold_in(walk_key, step))
+        if collect_stats:
+            stats.append(sched.dispatch_stats(index, carry.cur_node,
+                                              carry.alive, sched_cfg))
+        carry = hop(index, scfg, sched_cfg, carry, step + int(edges),
+                    prng.fold_in(walk_key, step))
+    if collect_stats:
+        stats = torch.stack(stats) if stats else torch.zeros(
+            (0, sched.NUM_STATS), dtype=torch.float32,
+            device=index.ns_ts.device)
     return WalkResult(nodes=carry.nodes, times=carry.times,
-                      lengths=carry.lengths)
+                      lengths=carry.lengths,
+                      stats=stats if collect_stats else None)

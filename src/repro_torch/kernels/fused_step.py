@@ -34,7 +34,8 @@ from repro_torch.core.samplers import (
     index_pick_lanes,
     index_uniform,
 )
-from repro_torch.core.temporal_index import TemporalIndex, node_range
+from repro_torch.core.scheduler import tile_table
+from repro_torch.core.temporal_index import TemporalIndex
 from repro_torch.kernels import runtime
 
 _P = ctypes.c_void_p
@@ -59,7 +60,7 @@ class FusedStepResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _region_count(lo: torch.Tensor, hi: torch.Tensor, pred) -> torch.Tensor:
+def region_count(lo: torch.Tensor, hi: torch.Tensor, pred) -> torch.Tensor:
     """counts[i] = #{p ∈ [lo_i, hi_i) : pred(i, p)}, over the flattened
     (lane, position) pairs in chunks of at most ``_CHUNK``."""
     length = (hi.long() - lo.long()).clamp(min=0)
@@ -78,7 +79,7 @@ def fused_step_plain(ns_ts, ns_dst, pexp, plin, a, b, time, code, u, tbase,
                      *, mode: str):
     """Tier-free fused hop: returns (k_global, n, dst, ts), dead lanes 0."""
     E = ns_ts.shape[0]
-    c = a + _region_count(a, b, lambda l, p: ns_ts[p] <= time[l])
+    c = a + region_count(a, b, lambda l, p: ns_ts[p] <= time[l])
     n = b - c
     if mode == "index":
         k = c + index_pick_lanes(code, u, n)
@@ -89,7 +90,7 @@ def fused_step_plain(ns_ts, ns_dst, pexp, plin, a, b, time, code, u, tbase,
         pe_c = pexp[cl]
         total_e = pexp[bl] - pe_c
         target_e = pe_c + u * total_e
-        k_exp = c + _region_count(
+        k_exp = c + region_count(
             c, b, lambda l, p: pexp[p + 1] < target_e[l])
         k_exp = torch.where(total_e > 0, k_exp, fb)
         # linear: S(j) = (PL(j+1) − PL(c)) − (j+1−c)·δ
@@ -97,7 +98,7 @@ def fused_step_plain(ns_ts, ns_dst, pexp, plin, a, b, time, code, u, tbase,
         pl_c = plin[cl]
         total_l = (plin[bl] - pl_c) - n.to(torch.float32) * delta
         r = u * total_l
-        k_lin = c + _region_count(
+        k_lin = c + region_count(
             c, b, lambda l, p: ((plin[p + 1] - pl_c[l])
                                 - (p + 1 - cl[l]).to(torch.float32)
                                 * delta[l]) < r[l])
@@ -221,21 +222,12 @@ class TierSplit(NamedTuple):
 def tier_split(index: TemporalIndex, s_node: torch.Tensor,
                cfg: SchedulerConfig) -> TierSplit:
     """The reference's tile-anchored tier split and its statistics."""
+    tiles = tile_table(index, s_node, cfg)
     W = s_node.shape[0]
-    E = index.edge_capacity
     TW, TE = cfg.tile_walks, cfg.tile_edges
-    if W % TW or E % TE:
-        raise ValueError(f"walks {W} / edges {E} not multiples of tile "
-                         f"({TW}, {TE})")
-    if E // TE < 2:
-        raise ValueError(f"edge capacity {E} must span >= 2 tiles of {TE}")
-    T, MAXB = W // TW, E // TE
-    a, b = node_range(index, s_node)
-    a_t, b_t = a.reshape(T, TW), b.reshape(T, TW)
-    base_blocks = (a_t.amin(dim=1) // TE).clamp(0, MAXB - 2).to(torch.int32)
-    base = (base_blocks * TE)[:, None]
-    big = ((a_t - base < 0) | (b_t - base > 2 * TE)).reshape(W)
-
+    T, MAXB = W // TW, index.edge_capacity // TE
+    a_t, b_t = tiles.a.reshape(T, TW), tiles.b.reshape(T, TW)
+    big = tiles.oversize
     ab_blk = a_t // TE
     bb_blk = torch.maximum(b_t - 1, a_t) // TE
     big_t = big.reshape(T, TW)
@@ -248,7 +240,8 @@ def tier_split(index: TemporalIndex, s_node: torch.Tensor,
     tiers = torch.stack([W - n_big, n_big,
                          torch.where(has_big, bhi - blo + 1, 0)
                          .sum(dtype=torch.int32)]).to(torch.int32)
-    return TierSplit(a=a, b=b, base_blocks=base_blocks, big=big, tiers=tiers)
+    return TierSplit(a=tiles.a, b=tiles.b, base_blocks=tiles.base_blocks,
+                     big=big, tiers=tiers)
 
 
 def fused_walk_step(index: TemporalIndex, s_node: torch.Tensor,

@@ -34,6 +34,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_tier_s": 0,
     "fused_tier_l": 0,
     "weight_prefix": 0,
+    "walk_step_tiled": 0,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

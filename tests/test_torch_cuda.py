@@ -18,12 +18,14 @@ from repro_torch.configs.base import (EngineConfig, SamplerConfig,
                                       SchedulerConfig, WalkConfig,
                                       WindowConfig)
 from repro_torch.core.edge_store import store_from_arrays
+from repro_torch.core.scheduler import panel_bounds, tile_table
 from repro_torch.core.streaming import StreamingEngine
 from repro_torch.core.temporal_index import build_index
 from repro_torch.data.synthetic import (chronological_batches,
                                         powerlaw_temporal_graph)
 from repro_torch.kernels import fused_step as kf
 from repro_torch.kernels import runtime
+from repro_torch.kernels import walk_step as kw
 from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
                                                weight_prefix,
                                                weight_prefix_plain)
@@ -68,6 +70,96 @@ def test_fused_kernels_match_plain(card, mode):
                                sp.a, sp.b, times, code, u, tbase, mode=mode)
     for g, w in zip(got[:4], want):
         assert torch.equal(g, w)
+
+
+def _boundary_index(device):
+    """The crafted graph of tests/test_tile_boundary.py (E = 64, TE = 8):
+    exact-fit regions at the head and at the end of the store, an empty
+    region, a small one and an oversize one."""
+    degs = {0: 16, 2: 4, 3: 20, 4: 8, 5: 16}
+    src, dst, ts = [], [], []
+    for j, d in degs.items():
+        for i in range(d):
+            src.append(j)
+            dst.append((j + 1 + i) % 8)
+            ts.append(j * 100 + 2 * i)
+    return build_index(store_from_arrays(np.asarray(src), np.asarray(dst),
+                                         np.asarray(ts), 64, 8,
+                                         device=device), 8)
+
+
+def _walk_step_cases(card):
+    rng = np.random.default_rng(3)
+    W = 2048
+    nodes = np.sort(rng.integers(0, 256, W)).astype(np.int32)
+    times = rng.integers(0, 10_000, W).astype(np.int32)
+    u = rng.uniform(size=W).astype(np.float32)
+    yield _index(card), nodes, times, u, SchedulerConfig(tile_walks=64,
+                                                         tile_edges=256)
+    nodes = np.asarray([0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 3, 3, 5, 5, 7, 7],
+                       np.int32)
+    times = np.asarray([-1, 15, 29, 30, 0, 1000, 199, 203, 299, 305, 321,
+                        400, 499, 515, 0, 999], np.int32)
+    u = rng.uniform(size=16).astype(np.float32)
+    u[0], u[12] = 0.0, 0.999999
+    yield _boundary_index(card), nodes, times, u, SchedulerConfig(
+        tile_walks=4, tile_edges=8)
+
+
+@pytest.mark.parametrize("mode,bias", [
+    ("index", "uniform"), ("index", "linear"), ("index", "exponential"),
+    ("weight", "uniform"), ("weight", "linear"), ("weight", "exponential")])
+def test_walk_step_kernel_matches_plain(card, mode, bias):
+    """walk_step_tiled on the card == walk_step_plain, every lane, on a
+    power-law graph with oversize lanes and on the boundary lanes."""
+    for idx, nodes, times, u, cfg in _walk_step_cases(card):
+        s_node, s_time, su = (torch.as_tensor(x, device=card)
+                              for x in (nodes, times, u))
+        tiles = tile_table(idx, s_node, cfg)
+        lo, hi = panel_bounds(tiles, cfg)
+        assert bool(tiles.oversize.any())
+        E = idx.edge_capacity
+        prefix = idx.plin if (mode, bias) == ("weight", "linear") \
+            else idx.pexp
+        args = (idx.ns_ts[:E], idx.ns_dst[:E], prefix[:E], prefix[1:E + 1],
+                tiles.base_blocks, s_time, lo, hi, su,
+                idx.node_tbase[s_node.clamp(0, idx.node_capacity - 1)
+                               .long()])
+        kwargs = dict(mode=mode, bias=bias, tile_walks=cfg.tile_walks,
+                      tile_edges=cfg.tile_edges)
+        before = runtime.LAUNCHES["walk_step_tiled"]
+        got = kw.walk_step_tiled(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["walk_step_tiled"] == before + 1
+        want = kw.walk_step_plain(*args, **kwargs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_small_replay_paths_agree_on_card(card):
+    """Every first-order layout replays the same stream to the same walks
+    on the card."""
+    g = powerlaw_temporal_graph(512, 1 << 14, seed=5, t_max=100_000)
+    batches = list(chronological_batches(g, 3))
+    wcfg = WalkConfig(num_walks=512, max_length=12)
+    out = []
+    for path, regroup in (("fullwalk", "bucket"), ("grouped", "bucket"),
+                          ("grouped", "lexsort"), ("tiled", "bucket"),
+                          ("tiled", "lexsort"), ("fused", "bucket"),
+                          ("fused", "lexsort")):
+        cfg = EngineConfig(
+            window=WindowConfig(duration=50_000.0, edge_capacity=1 << 13,
+                                node_capacity=512),
+            sampler=SamplerConfig(bias="exponential", mode="index"),
+            scheduler=SchedulerConfig(path=path, regroup=regroup,
+                                      tile_walks=64, tile_edges=256))
+        out.append(StreamingEngine(cfg, 1 << 13, device=card).replay_device(
+            batches, wcfg, return_walks=True))
+    for stats, walks, _ in out[1:]:
+        for a, b in zip(stats, out[0][0]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(walks[:3], out[0][1][:3]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_weight_prefix_kernel_matches_plain(card):

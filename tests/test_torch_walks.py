@@ -201,7 +201,10 @@ def test_capability_refusals(t_index):
     with pytest.raises(ValueError, match="unknown bias"):
         generate_walks(t_index, key, wcfg, tcfg.SamplerConfig(bias="zipf"),
                        fused)
-    for sched in (tcfg.SchedulerConfig(path="grouped"),
-                  tcfg.SchedulerConfig(path="fused", regroup="lexsort")):
+    # what stays unported: alias tables and node2vec on the paths that
+    # would serve them
+    grouped = tcfg.SchedulerConfig(path="grouped")
+    for scfg in (tcfg.SamplerConfig(bias="table"),
+                 tcfg.SamplerConfig(node2vec_p=0.5)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            generate_walks(t_index, key, wcfg, tcfg.SamplerConfig(), sched)
+            generate_walks(t_index, key, wcfg, scfg, grouped)
