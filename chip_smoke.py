@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
 every kernel against its plain PyTorch version on the card (the fused
-tiers, ``weight_prefix`` and ``walk_step_tiled``), drives the streaming
+tiers, ``weight_prefix`` with its run-to-run determinism, and the tiled
+hop both as ``walk_step_hop``, the tiled path's one launch per hop, and as
+``walk_step_tiled``'s tile-local contract), drives the streaming
 main path (ingest -> index rebuild -> fused-hop walks) at full size
 through ``StreamingEngine.replay_device``, replays the same stream on the
 tiled path, holds the seven first-order layouts to byte-identical walks
@@ -164,6 +166,62 @@ def compare_fused(index, sched, s_node, s_time, code, u, mode, rng):
                 max_abs_err=err), split, got, lanes
 
 
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy = 0.0
+    last = -math.inf
+    for s, t in sorted(spans):
+        if t > last:
+            busy += t - max(s, last)
+            last = t
+    return busy
+
+
+def profile_call(fn) -> dict:
+    """Device kernels and device-busy ms of one call of ``fn``, after a
+    warm-up call, from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(kernels=len(spans), device_ms=busy_us(spans) / 1e3)
+
+
+def two_stage_hop(index, s_node, s_time, u, scfg, sched):
+    """The tiled hop as the previous design ran it, for comparison: the
+    tile-local walk_step_tiled on every lane, then the plain-torch global
+    fallback (temporal_cutoff, pick_in_neighborhood) over every lane,
+    merged by the oversize mask. Returns (k, n) like ops.walk_step."""
+    import torch
+    from repro_torch.core.samplers import pick_in_neighborhood
+    from repro_torch.core.scheduler import panel_bounds, tile_table
+    from repro_torch.core.temporal_index import temporal_cutoff
+    from repro_torch.kernels.walk_step import walk_step_tiled
+    E, TE = index.edge_capacity, sched.tile_edges
+    tiles = tile_table(index, s_node, sched)
+    lo, hi = panel_bounds(tiles, sched)
+    prefix = index.plin if (scfg.mode, scfg.bias) == ("weight", "linear") \
+        else index.pexp
+    tbase = index.node_tbase[s_node.clamp(0, index.node_capacity - 1)
+                             .long()]
+    k_loc, n_k, _, _ = walk_step_tiled(
+        index.ns_ts[:E], index.ns_dst[:E], prefix[:E], prefix[1:E + 1],
+        tiles.base_blocks, s_time, lo, hi, u, tbase, mode=scfg.mode,
+        bias=scfg.bias, tile_walks=sched.tile_walks, tile_edges=TE)
+    k_kernel = (tiles.base_blocks * TE).repeat_interleave(sched.tile_walks) \
+        + k_loc
+    c = temporal_cutoff(index, tiles.a, tiles.b, s_time)
+    k_fb = pick_in_neighborhood(index, scfg, c, tiles.b, u, s_node)
+    return (torch.where(tiles.oversize, k_fb, k_kernel),
+            torch.where(tiles.oversize, tiles.b - c, n_k))
+
+
 def profile_batch(engine, batch, wcfg) -> dict:
     """Where one more batch of the main path spends its time: stage times
     by CUDA events, then kernel time by name and the device's busy share
@@ -210,12 +268,7 @@ def profile_batch(engine, batch, wcfg) -> dict:
         s, t = e.time_range.start, e.time_range.end
         spans.append((s, t))
         by_name[e.name] = by_name.get(e.name, 0.0) + (t - s) / 1e3
-    busy = 0.0
-    last = -math.inf
-    for s, t in sorted(spans):
-        if t > last:
-            busy += t - max(s, last)
-            last = t
+    busy = busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     # device kernels of one hop's draw, to set against the batch's total
     draw_key = prng.PRNGKey(8)
@@ -237,16 +290,41 @@ def profile_batch(engine, batch, wcfg) -> dict:
     return out
 
 
-def walk_step_bound_ms(W: int, sched, staged: int, weight: bool) -> float:
-    """Least device time of one walk_step_tiled launch, by bytes: per lane
-    time, lo, hi and u read (tbase too in weight mode) and four int32
-    written; the task's base block; and every row of each of the
-    ``staged`` distinct TE blocks read once: (ts, dst), plus P(j) and
-    P(j+1) in weight mode."""
-    lane = (9 if weight else 8) * 4
-    row = 16 if weight else 8
-    T = W // sched.tile_walks
-    return (lane * W + 4 * T + row * sched.tile_edges * staged) \
+def walk_step_bound_ms(index, sched, tiles, n, mode: str,
+                       bias: str) -> float:
+    """Least device time of one walk_step_hop launch, by bytes, for the
+    lanes of ``tiles`` and the kernel's own ``n``: per lane a, b, time and
+    u read (tbase too in weight/linear) and four int32 written; each
+    task's base block; the distinct rows staged by the tasks that stage,
+    rows [min lo, max hi] of their in-tile lanes with n > 0, read once:
+    (ts, dst) up to the panel's last row, plus the prefix row P(j) in
+    weight mode; and one (dst, ts) row per live oversize lane. Search
+    probes are left out, so it is a lower bound."""
+    import torch
+    TW, TE = sched.tile_walks, sched.tile_edges
+    P = 2 * TE
+    W = n.shape[0]
+    T = W // TW
+    live_in = ~tiles.oversize & (n > 0)
+    lo = torch.where(live_in, tiles.lo_raw, P + 1).reshape(T, TW).amin(1)
+    hi = torch.where(live_in, tiles.hi_raw, -1).reshape(T, TW).amax(1)
+    stages = hi >= 0
+    base = tiles.base_blocks.long()[stages] * TE
+    start = base + lo[stages]
+
+    def distinct(end):
+        mark = torch.zeros(index.edge_capacity + 2, dtype=torch.int32,
+                           device=n.device)
+        one = torch.ones_like(start, dtype=torch.int32)
+        mark.index_add_(0, start, one)
+        mark.index_add_(0, end, -one)
+        return int((torch.cumsum(mark, 0) > 0).sum())
+
+    rows = distinct(base + (hi[stages] + 1).clamp(max=P))
+    pre_rows = distinct(base + hi[stages] + 1) if mode == "weight" else 0
+    lane = (16 + (4 if (mode, bias) == ("weight", "linear") else 0)) + 16
+    live_over = int((tiles.oversize & (n > 0)).sum())
+    return (lane * W + 4 * T + 8 * rows + 4 * pre_rows + 8 * live_over) \
         / HBM_BYTES_PER_S * 1e3
 
 
@@ -260,6 +338,17 @@ def tiled_args(index, tiles, s_node, s_time, u, mode, bias):
     base_blocks, lo, hi = tiles
     return (index.ns_ts[:E], index.ns_dst[:E], prefix[:E], prefix[1:E + 1],
             base_blocks, s_time, lo, hi, u, tbase)
+
+
+def hop_args(index, base_blocks, a, b, s_node, s_time, u, mode, bias):
+    """Arguments of walk_step_hop for one hop, as kernels/ops.py builds
+    them (tbase always given, so the plain version may read it)."""
+    E = index.edge_capacity
+    prefix = index.plin if (mode, bias) == ("weight", "linear") \
+        else index.pexp
+    tbase = index.node_tbase[s_node.clamp(0, index.node_capacity - 1).long()]
+    return (index.ns_ts[:E], index.ns_dst[:E], prefix, base_blocks, s_time,
+            a, b, u, tbase)
 
 
 def exact_fit_tasks(index, sched, rng):
@@ -298,12 +387,14 @@ def exact_fit_tasks(index, sched, rng):
 
 
 def compare_walk_step(index, sched, s_node, s_time, u, rng):
-    """walk_step_tiled vs walk_step_plain for the six (mode, bias): every
-    lane of the hop in index mode; in weight mode the lanes of a subset of
-    its tiles that holds oversize lanes (and exact-fit lanes where the hop
-    has any). Exact-fit tasks built on the same index are compared in
-    every mode too. Returns the readings per mode, the size of the
-    exact-fit tasks, the hop's task table and its clipped (lo, hi)."""
+    """For the six (mode, bias): walk_step_hop vs walk_step_hop_plain on
+    every lane of the hop, in-tile and oversize; and walk_step_tiled vs
+    walk_step_plain (the tile-local contract) on every lane in index mode
+    and, in weight mode, on the lanes of a subset of its tiles that holds
+    oversize lanes (and exact-fit lanes where the hop has any). Exact-fit
+    tasks built on the same index are compared in every mode, by both.
+    Returns the readings per mode, the size of the exact-fit tasks, the
+    hop's task table and its clipped (lo, hi)."""
     import torch
     from repro_torch.core.scheduler import panel_bounds, tile_table
     from repro_torch.kernels import walk_step as kw
@@ -367,9 +458,29 @@ def compare_walk_step(index, sched, s_node, s_time, u, rng):
         n_ov = int(over[on].sum())
         require(n_ov > 0, f"walk_step_tiled {mode}/{bias}: no oversize "
                           "lane compared")
+        # the one-launch hop: every lane, then the exact-fit tasks
+        h_args = hop_args(index, tiles.base_blocks, tiles.a, tiles.b,
+                          s_node, s_time, u, mode, bias)
+        want_h = kw.walk_step_hop_plain(*h_args, **kwargs)
+        err_h = check(f"hop {mode}/{bias}",
+                      kw.walk_step_hop(*h_args, **kwargs), want_h)
+        c_rows = (c_base.repeat_interleave(TW) * TE).to(torch.int32)
+        ch_args = hop_args(index, c_base, c_lo + c_rows, c_hi + c_rows,
+                           c_node, c_time, c_u, mode, bias)
+        err_h = max(err_h, check(f"hop {mode}/{bias} exact-fit tasks",
+                                 kw.walk_step_hop(*ch_args, **kwargs),
+                                 kw.walk_step_hop_plain(*ch_args,
+                                                        **kwargs)))
+        live_ov = int((over & (want_h[1] > 0)).sum())
+        require(live_ov > 0, f"walk_step_hop {mode}/{bias}: no live "
+                             "oversize lane compared")
         readings[f"{mode}/{bias}"] = dict(
             lanes=int(on.numel()), oversize=n_ov,
-            exact_fit=int(exact[on].sum()), max_abs_err=err)
+            exact_fit=int(exact[on].sum()), max_abs_err=err,
+            hop=dict(lanes=W, oversize=int(over.sum()),
+                     live_oversize=live_ov,
+                     live_in_tile=int((~over & (want_h[1] > 0)).sum()),
+                     max_abs_err=err_h))
     crafted = dict(tasks=int(c_base.numel()), lanes=int(c_node.numel()),
                    empty_at_panel_end=int((c_lo == c_hi).sum()))
     return readings, crafted, tiles, (lo, hi)
@@ -606,6 +717,7 @@ def main(argv=None) -> int:
     from repro_torch.data.synthetic import (chronological_batches,
                                             powerlaw_temporal_graph)
     from repro_torch.kernels import fused_step as kf
+    from repro_torch.kernels import ops
     from repro_torch.kernels import runtime
     from repro_torch.kernels import walk_step as kw
     from repro_torch.kernels.weight_prefix import (TOL_U, error_in_u,
@@ -675,7 +787,8 @@ def main(argv=None) -> int:
     in_range = idx.ns_src < nc
     dt = (idx.ns_ts - idx.node_tref[idx.ns_src.clamp(0, nc - 1).long()]) \
         .to(torch.float32)
-    wp_k = weight_prefix(dt, in_range)
+    wp_runs = [weight_prefix(dt, in_range) for _ in range(3)]
+    wp_k = wp_runs[0]
     wp_p = weight_prefix_plain(dt, in_range)
     wp_err_u = error_in_u(wp_k, wp_p)
     wp_max_err = (wp_k - wp_p).abs().max().item()
@@ -687,13 +800,19 @@ def main(argv=None) -> int:
     require(bool((wp_k[1:] >= wp_k[:-1]).all()),
             "weight_prefix output is not non-decreasing")
     require(bool(torch.equal(wp_k, idx.pexp)), "pexp != weight_prefix")
+    require(all(torch.equal(r.view(torch.int32), wp_k.view(torch.int32))
+                for r in wp_runs[1:]),
+            "weight_prefix: three calls on the same input differ")
+    del wp_runs
     emit("kernels_vs_plain",
          fused_index=cmp_index, fused_weight=cmp_weight,
-         weight_prefix=dict(**wp_reading, monotone=True),
+         weight_prefix=dict(**wp_reading, monotone=True,
+                            bitwise_equal_calls=3),
          lanes=W, tier_l_lanes=int(split.big.sum()),
          window_edges=int(idx.num_edges))
 
-    # walk_step_tiled against its plain version on the same hop's lanes
+    # walk_step_hop and walk_step_tiled against their plain versions on the
+    # same hop's lanes
     sched_t = SchedulerConfig(path="tiled", regroup="bucket")
     cmp_tiled, exact_tasks, tiles, (lo_t, hi_t) = compare_walk_step(
         idx, sched_t, s_node, s_time, u, rng)
@@ -714,18 +833,23 @@ def main(argv=None) -> int:
               idx.plin)
     args_ws = tiled_args(idx, (tiles.base_blocks, lo_t, hi_t), s_node,
                          s_time, u, "index", "exponential")
+    args_hop = hop_args(idx, tiles.base_blocks, tiles.a, tiles.b, s_node,
+                        s_time, u, "index", "exponential")
     kw_ws = dict(mode="index", bias="exponential",
                  tile_walks=sched_t.tile_walks, tile_edges=sched_t.tile_edges)
     timed = {
-        "walk_step_tiled": (lambda: kw.walk_step_tiled(*args_ws, **kw_ws),
-                            ("walk_step_tiled_kernel",)),
+        "walk_step_tiled": (lambda: kw.walk_step_hop(*args_hop, **kw_ws),
+                            ("walk_step_kernel",)),
+        "walk_step_tiled_tile_local": (
+            lambda: kw.walk_step_tiled(*args_ws, **kw_ws),
+            ("walk_step_kernel",)),
         "fused_tier_s": (lambda: kf.fused_tier_s(
             *args_s, mode="index", tile_walks=sched.tile_walks,
             tile_edges=sched.tile_edges, out=out), ("fused_tier_s_kernel",)),
         "fused_tier_l": (lambda: kf.fused_tier_l(
             *args_s[1:], mode="index", out=out), ("fused_tier_l_kernel",)),
         "weight_prefix": (lambda: weight_prefix(dt, in_range),
-                          ("wp_block_totals", "wp_chain", "wp_apply")),
+                          ("weight_prefix_lookback",)),
     }
     # ms: device time per launch (profiler); issue_ms: per wrapper call by
     # CUDA events, which for a kernel shorter than its Python wrapper's
@@ -744,7 +868,8 @@ def main(argv=None) -> int:
     plain_ms = cuda_ms(lambda: kf.fused_step_plain(*plain_args,
                                                    mode="index"), reps=3)
     plain_wp = cuda_ms(lambda: weight_prefix_plain(dt, in_range))
-    plain_ws = cuda_ms(lambda: kw.walk_step_plain(*args_ws, **kw_ws), reps=3)
+    plain_ws = cuda_ms(lambda: kw.walk_step_hop_plain(*args_hop, **kw_ws),
+                       reps=3)
     w_exp = torch.where(in_range, torch.exp(dt), 0.0)
     lib_wp = cuda_ms(lambda: torch.cumsum(w_exp, 0))
     n_big = int(split.big.sum())
@@ -757,12 +882,26 @@ def main(argv=None) -> int:
     bound_s = (n_small * lane_io + live_s * 8 + T * 4) / HBM_BYTES_PER_S * 1e3
     bound_l = (n_big * lane_io + live_l * 8) / HBM_BYTES_PER_S * 1e3
     bound_wp = (E * 5 + (E + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    staged = torch.unique(torch.cat([tiles.base_blocks,
-                                     tiles.base_blocks + 1])).numel()
-    bound_ws = walk_step_bound_ms(W, sched_t, staged,
-                                  weight=kw_ws["mode"] == "weight")
+    n_hop = kw.walk_step_hop(*args_hop, **kw_ws)[1]
+    bound_ws = walk_step_bound_ms(idx, sched_t, tiles, n_hop, "index",
+                                  "exponential")
+    # the tiled hop as the tiled path runs it (one launch) and as the
+    # previous design ran it (tile-local kernel, then the plain-torch
+    # fallback over every lane), on the same lanes, one call each
+    scfg_e = SamplerConfig(bias="exponential", mode="index")
+    one = ops.walk_step(idx, s_node, s_time, u, scfg_e, sched_t)
+    two = two_stage_hop(idx, s_node, s_time, u, scfg_e, sched_t)
+    require(all(bool((x.long() == y.long()).all()) for x, y in zip(one, two)),
+            "tiled hop: one launch and two stages differ")
+    emit("tiled_hop", lanes=W,
+         one_launch=profile_call(
+             lambda: ops.walk_step(idx, s_node, s_time, u, scfg_e, sched_t)),
+         two_stage=profile_call(
+             lambda: two_stage_hop(idx, s_node, s_time, u, scfg_e, sched_t)),
+         oversize_lanes=int(tiles.oversize.sum()),
+         live_lanes=int((n_hop > 0).sum()))
     del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p, tiles, args_ws
-    del lo_t, hi_t
+    del lo_t, hi_t, args_hop, n_hop, one, two
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full size ------------------------------
@@ -939,7 +1078,9 @@ def main(argv=None) -> int:
              launches=launches_t["walk_step_tiled"],
              max_abs_err=max(r["max_abs_err"] for r in cmp_tiled.values()),
              **times["walk_step_tiled"], plain_ms=plain_ws, plain_lanes=W,
-             bound_ms=bound_ws, bound_by="bytes", library_ms=None),
+             bound_ms=bound_ws, bound_by="bytes", library_ms=None,
+             timed="walk_step_hop, index/exponential, every lane",
+             tile_local_ms=times["walk_step_tiled_tile_local"]["ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,9 +1,9 @@
 """Dispatch plane (paper §2.4.4) and per-hop lane regrouping (DESIGN.md
 §10), PyTorch port of core/scheduler.py: ``dispatch_stats`` (per-hop tier
 statistics and the modeled fullwalk / grouped memory traffic),
-``bucket_regroup``, and two tile tables: ``tile_table``, which the tiled
-and fused hops run, and the reference's ``build_task_table``, which no
-hop of either package runs.
+``bucket_regroup``, and two tile tables: ``tile_table``, which the fused
+hop runs (the tiled hop runs its ``task_bases``), and the reference's
+``build_task_table``, which no hop of either package runs.
 
 The reference's ``segment_sum`` is a ``scatter_add`` here; every float
 statistic is a float32 sum, as in the reference.
@@ -162,6 +162,21 @@ class Tiles(NamedTuple):
     oversize: torch.Tensor      # bool[W] region leaves the panel: fallback
 
 
+def task_bases(a: torch.Tensor, E: int, cfg: SchedulerConfig
+               ) -> torch.Tensor:
+    """Staged block of each tile of node-sorted lanes with region starts
+    ``a``: ``clip(min(a) // TE, 0, E // TE − 2)``, int32[W // TW]."""
+    W = a.shape[0]
+    TW, TE = cfg.tile_walks, cfg.tile_edges
+    if W % TW or E % TE:
+        raise ValueError(f"walks {W} / edges {E} not multiples of tile "
+                         f"({TW}, {TE})")
+    if E // TE < 2:
+        raise ValueError(f"edge capacity {E} must span >= 2 tiles of {TE}")
+    return (a.reshape(W // TW, TW).amin(dim=1) // TE) \
+        .clamp(0, E // TE - 2).to(torch.int32)
+
+
 def tile_table(index, s_node: torch.Tensor,
                cfg: SchedulerConfig) -> Tiles:
     """Anchor each tile of node-sorted lanes at a TE block,
@@ -169,18 +184,11 @@ def tile_table(index, s_node: torch.Tensor,
     region does not fit its ``2·TE`` panel (kernels/ops.py:36-55 of the
     reference; the fused tier split uses the same rule)."""
     W = s_node.shape[0]
-    E = index.edge_capacity
     TW, TE = cfg.tile_walks, cfg.tile_edges
-    if W % TW or E % TE:
-        raise ValueError(f"walks {W} / edges {E} not multiples of tile "
-                         f"({TW}, {TE})")
-    if E // TE < 2:
-        raise ValueError(f"edge capacity {E} must span >= 2 tiles of {TE}")
     a, b = node_range(index, s_node)
+    base_blocks = task_bases(a, index.edge_capacity, cfg)
     T = W // TW
     a_t, b_t = a.reshape(T, TW), b.reshape(T, TW)
-    base_blocks = (a_t.amin(dim=1) // TE).clamp(0, E // TE - 2) \
-        .to(torch.int32)
     base = (base_blocks * TE)[:, None]
     lo = (a_t - base).reshape(W)
     hi = (b_t - base).reshape(W)

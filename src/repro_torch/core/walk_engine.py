@@ -6,9 +6,9 @@ Execution paths (``SchedulerConfig.path``), as in the reference:
 * ``fullwalk`` — every walk advances independently, in walk order.
 * ``grouped`` — each hop regroups lanes by (node, time); equal runs share
   one temporal cutoff, computed at the run's head.
-* ``tiled`` — grouped lanes, with the hop's search and sample in the
-  ``walk_step_tiled`` kernel (kernels/ops.py); oversize lanes take the
-  plain-torch pick.
+* ``tiled`` — grouped lanes, with the hop's search and sample in one
+  launch of the ``walk_step_tiled`` kernel (kernels/ops.py), which serves
+  oversize lanes through the reference's global fallback.
 * ``fused`` — grouped lanes, with the whole hop in the fused kernels
   (kernels/fused_step.py).
 

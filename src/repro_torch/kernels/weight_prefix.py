@@ -6,11 +6,18 @@ the reference's Pallas kernel kernels/weight_prefix.py::weight_prefix and
 oracle kernels/ref.py::weight_prefix_ref. The index build computes
 ``pexp`` and ``pexp_store`` through it.
 
-A CUDA tensor goes to the Hopper kernel (csrc/weight_prefix.cu); a CPU
-tensor goes to the plain version ``weight_prefix_plain``. The plain
+A CUDA tensor goes to the Hopper kernel (csrc/weight_prefix.cu, one
+launch: a single-pass scan with decoupled look-back, chained across tiles
+in float64, whose output is the same on every run and non-decreasing); a
+CPU tensor goes to the plain version ``weight_prefix_plain``. The plain
 version accumulates in float64 and rounds once, so at a multi-million-edge
 window it is the exact prefix to within half an ulp; ``error_in_u``
-measures the kernel's float32 chain against it.
+measures the kernel's float32 scan against it.
+
+The kernel's look-back reads per-tile status words from a workspace that
+is kept per (device, stream). Each call tags its words with a new epoch,
+so calls do not clear them: the workspace is zeroed only when it is
+allocated or grown (or after 2^31 - 1 calls, when the epochs wrap).
 """
 from __future__ import annotations
 
@@ -22,8 +29,9 @@ from repro_torch.kernels import runtime
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
-_BLOCK_ELEMS = 4096      # kBlockElems in csrc/weight_prefix.cu
+             ctypes.c_uint, ctypes.c_void_p]
+_TILE = 8192             # kTile in csrc/weight_prefix.cu
+_EPOCHS = 1 << 31        # a status word's flag holds epochs 1 .. 2^31 - 1
 _U = 2.0 ** -24          # float32 unit roundoff
 # The kernel may differ from the plain version by this many units of
 # float32 roundoff of P (``error_in_u``). PERF.md gives the on-card
@@ -60,11 +68,33 @@ def weight_prefix(dt: torch.Tensor, valid: torch.Tensor,
     out = torch.empty(E + 1, dtype=torch.float32, device=dt.device)
     if E == 0:
         return out.zero_()
-    nblk = -(-E // _BLOCK_ELEMS)
-    scratch = torch.empty(2 * nblk, dtype=torch.float32, device=dt.device)
+    workspace, epoch = _workspace(-(-E // _TILE), dt.device)
     fn = runtime.kernel("repro_weight_prefix", _ARGTYPES)
     status = fn(dt.data_ptr(), valid.data_ptr(), float(scale), E,
-                out.data_ptr(), scratch.data_ptr(), runtime.stream())
+                out.data_ptr(), workspace.data_ptr(), epoch,
+                runtime.stream())
     runtime.check(status, "weight_prefix")
     runtime.LAUNCHES["weight_prefix"] += 1
     return out
+
+
+# (device, stream) -> [workspace, last epoch]
+_WORKSPACES: dict = {}
+
+
+def _workspace(ntiles: int, device: torch.device):
+    """The look-back workspace of the current stream (a tile counter, one
+    status word per tile, one float64 prefix per tile) and this call's
+    epoch. Zeroed only when it is allocated, grown, or its epochs run
+    out."""
+    key = (device, runtime.stream())
+    entry = _WORKSPACES.get(key)
+    if entry is None or entry[0].numel() < 2 * ntiles + 1:
+        entry = [torch.zeros(2 * ntiles + 1, dtype=torch.int64,
+                             device=device), 0]
+        _WORKSPACES[key] = entry
+    elif entry[1] + 1 >= _EPOCHS:
+        entry[0].zero_()
+        entry[1] = 0
+    entry[1] += 1
+    return entry[0], entry[1]

@@ -18,7 +18,7 @@ from repro_torch.configs.base import (EngineConfig, SamplerConfig,
                                       SchedulerConfig, WalkConfig,
                                       WindowConfig)
 from repro_torch.core.edge_store import store_from_arrays
-from repro_torch.core.scheduler import panel_bounds, tile_table
+from repro_torch.core.scheduler import panel_bounds, task_bases, tile_table
 from repro_torch.core.streaming import StreamingEngine
 from repro_torch.core.temporal_index import build_index
 from repro_torch.data.synthetic import (chronological_batches,
@@ -136,6 +136,36 @@ def test_walk_step_kernel_matches_plain(card, mode, bias):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("mode,bias", [
+    ("index", "uniform"), ("index", "linear"), ("index", "exponential"),
+    ("weight", "uniform"), ("weight", "linear"), ("weight", "exponential")])
+def test_walk_step_hop_matches_plain(card, mode, bias):
+    """walk_step_hop (one launch, oversize lanes served in the kernel) ==
+    walk_step_hop_plain on every lane, on a power-law graph with oversize
+    lanes and on the boundary lanes."""
+    for idx, nodes, times, u, cfg in _walk_step_cases(card):
+        s_node, s_time, su = (torch.as_tensor(x, device=card)
+                              for x in (nodes, times, u))
+        tiles = tile_table(idx, s_node, cfg)
+        assert bool(tiles.oversize.any())
+        E = idx.edge_capacity
+        prefix = idx.plin if (mode, bias) == ("weight", "linear") \
+            else idx.pexp
+        args = (idx.ns_ts[:E], idx.ns_dst[:E], prefix,
+                task_bases(tiles.a, E, cfg), s_time, tiles.a, tiles.b, su,
+                idx.node_tbase[s_node.clamp(0, idx.node_capacity - 1)
+                               .long()])
+        kwargs = dict(mode=mode, bias=bias, tile_walks=cfg.tile_walks,
+                      tile_edges=cfg.tile_edges)
+        before = runtime.LAUNCHES["walk_step_tiled"]
+        got = kw.walk_step_hop(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["walk_step_tiled"] == before + 1
+        want = kw.walk_step_hop_plain(*args, **kwargs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_small_replay_paths_agree_on_card(card):
     """Every first-order layout replays the same stream to the same walks
     on the card."""
@@ -173,6 +203,28 @@ def test_weight_prefix_kernel_matches_plain(card):
     assert got[0].item() == 0.0
     assert bool((got[1:] >= got[:-1]).all())
     assert error_in_u(got, want) <= TOL_U
+
+
+@pytest.mark.parametrize("E", [0, 1, 4095, 4097, 8191, 8193, 1 << 22])
+def test_weight_prefix_kernel_is_deterministic_and_monotone(card, E):
+    """One launch per call; three calls give the same bits; the output is
+    non-decreasing and within TOL_U of the plain version, at ragged sizes
+    and at 2^22 edges with a long masked tail."""
+    rng = np.random.default_rng(E % 1000)
+    dt = torch.as_tensor(-rng.uniform(0.0, 87.0, E).astype(np.float32),
+                         device=card)
+    valid = torch.as_tensor(rng.uniform(size=E) < 0.95, device=card)
+    valid[int(E * 0.7):] = False
+    before = runtime.LAUNCHES["weight_prefix"]
+    runs = [weight_prefix(dt, valid) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["weight_prefix"] == before + (3 if E else 0)
+    for r in runs[1:]:
+        assert torch.equal(r.view(torch.int32), runs[0].view(torch.int32))
+    got = runs[0]
+    assert got.shape == (E + 1,) and got[0].item() == 0.0
+    assert bool((got[1:] >= got[:-1]).all())
+    assert error_in_u(got, weight_prefix_plain(dt, valid)) <= TOL_U
 
 
 def test_small_replay_card_equals_cpu(card):

@@ -9,6 +9,11 @@ samplers vs the JAX reference.
   ``hi == 2·TE``, an empty end-of-window region, oversize).
 * ``ops.walk_step`` equals the reference's ``ops.walk_step`` on every lane
   of a hub graph where some lanes are oversize.
+* ``walk_step_hop_plain`` (the plain version of the one-launch hop) equals
+  the reference's ``ops.walk_step`` ``(k, n)`` bitwise in all six
+  (mode, bias), on a hub graph and on the boundary lanes (oversize,
+  exact fit ``hi == 2·TE``, empty end-of-window), and gathers ``dst``/``ts``
+  at ``k`` where ``n > 0``.
 * ``weighted_pick_linear`` and ``pick_in_neighborhood`` equal the
   reference on shared (c, b, u) grids.
 * The unclipped weight-mode pick: the target ``p_c ⊕ (u ⊗ (p_hi ⊖ p_c))``
@@ -45,7 +50,9 @@ from repro_torch.core.temporal_index import node_range, temporal_cutoff
 from repro_torch.kernels import fused_step as kf
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import runtime
-from repro_torch.kernels.walk_step import walk_step_plain, walk_step_tiled
+from repro_torch.kernels.walk_step import (walk_step_hop,
+                                           walk_step_hop_plain,
+                                           walk_step_plain, walk_step_tiled)
 
 from test_tile_boundary import E as BE
 from test_tile_boundary import TE as BTE
@@ -161,6 +168,61 @@ def test_walk_step_wrapper_matches_reference(mode, bias):
     tiles = t_sched.tile_table(t_idx, torch.from_numpy(nodes),
                              SchedulerConfig(**cfg))
     assert 0 < int(tiles.oversize.sum()) < 512
+
+
+def _hop_cases():
+    """(reference index, nodes, times, u, tile config): a hub graph whose
+    lanes are mostly oversize, and the boundary graph's crafted lanes."""
+    yield (_graph_index(N=64, num_edges=8000, E=8192, seed=3, skew=2.0),
+           *_lanes(6, 512, 64), dict(tile_walks=128, tile_edges=256))
+    yield (_boundary_index(), *(np.array(x) for x in _boundary_lanes()),
+           dict(tile_walks=BTW, tile_edges=BTE))
+
+
+@pytest.mark.parametrize("mode,bias", MODES)
+def test_walk_step_hop_plain_matches_reference_ops(mode, bias):
+    """walk_step_hop_plain == the reference's ops.walk_step (k, n) on every
+    lane, bitwise; dst/ts are the rows at k where n > 0, else 0; the CPU
+    route of walk_step_hop is the plain version and counts no launch."""
+    seen = dict(oversize=0, exact_fit=0, empty_at_end=0)
+    for j_idx, nodes, times, u, tiles in _hop_cases():
+        t_idx = interop.index_from_ref(j_idx, device="cpu")
+        want = j_ops.walk_step(j_idx, *map(jnp.asarray, (nodes, times, u)),
+                               JSamplerConfig(bias=bias, mode=mode),
+                               JSchedulerConfig(path="tiled", **tiles),
+                               interpret=True)
+        E = t_idx.edge_capacity
+        tn, tt, tu = map(torch.from_numpy, (nodes, times, u))
+        a, b = node_range(t_idx, tn)
+        prefix = t_idx.plin if (mode, bias) == ("weight", "linear") \
+            else t_idx.pexp
+        tbase = t_idx.node_tbase[tn.clamp(0, t_idx.node_capacity - 1).long()]
+        args = (t_idx.ns_ts[:E], t_idx.ns_dst[:E], prefix,
+                t_sched.task_bases(a, E, SchedulerConfig(**tiles)), tt, a, b,
+                tu, tbase)
+        kw = dict(mode=mode, bias=bias, **tiles)
+        got = walk_step_hop_plain(*args, **kw)
+        for name, g, w in zip(("k", "n"), got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"{mode}/{bias}/{name}")
+        k, n, dst, ts = got
+        has = n > 0
+        kc = k.clamp(0, E - 1).long()
+        assert torch.equal(dst, torch.where(has, t_idx.ns_dst[kc], 0))
+        assert torch.equal(ts, torch.where(has, t_idx.ns_ts[kc], 0))
+        before = dict(runtime.LAUNCHES)
+        for g, w in zip(walk_step_hop(*args, **kw), got):
+            assert torch.equal(g, w)
+        assert runtime.LAUNCHES == before
+        tl = t_sched.tile_table(t_idx, tn, SchedulerConfig(**tiles))
+        lo, hi = t_sched.panel_bounds(tl, SchedulerConfig(**tiles))
+        P = 2 * tiles["tile_edges"]
+        seen["oversize"] += int(tl.oversize.sum())
+        seen["exact_fit"] += int((~tl.oversize & (hi == P) & (lo < P)).sum())
+        seen["empty_at_end"] += int((~tl.oversize & (lo == P)
+                                     & (hi == P)).sum())
+    assert all(v > 0 for v in seen.values()), seen
 
 
 def test_tile_table_matches_reference_task_inputs():
