@@ -6,10 +6,11 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
-every kernel against its plain PyTorch version on the card (the fused
-tiers, ``weight_prefix`` with its run-to-run determinism, and the tiled
-hop both as ``walk_step_hop``, the tiled path's one launch per hop, and as
-``walk_step_tiled``'s tile-local contract), drives the streaming
+every kernel against its plain PyTorch version on the card (the fused hop
+``fused_hop``, one launch per hop for both tiers, ``weight_prefix`` with
+its run-to-run determinism, and the tiled hop both as ``walk_step_hop``,
+the tiled path's one launch per hop, and as ``walk_step_tiled``'s
+tile-local contract), times one fused hop alone, drives the streaming
 main path (ingest -> index rebuild -> fused-hop walks) at full size
 through ``StreamingEngine.replay_device``, replays the same stream on the
 tiled path, holds the seven first-order layouts to byte-identical walks
@@ -134,11 +135,15 @@ def hop_inputs(index, wcfg, scfg, sched, key, hops: int):
 
 def compare_fused(index, sched, s_node, s_time, code, u, mode, rng):
     """Kernel hop vs the plain version on a lane subset holding tier-L
-    lanes; returns (lanes compared per tier, max |diff|)."""
+    lanes, and its ``tiers`` vs tier_split's; returns (lanes compared per
+    tier, max |diff|), the split, the kernel's outputs and the lanes."""
     import torch
     from repro_torch.kernels import fused_step as kf
     split = kf.tier_split(index, s_node, sched)
     got = kf.fused_walk_step(index, s_node, s_time, code, u, mode, sched)
+    require(torch.equal(got.tiers, split.tiers),
+            f"fused {mode}: tiers {got.tiers.tolist()} != tier_split's "
+            f"{split.tiers.tolist()}")
     big = split.big.cpu().numpy()
     W = big.shape[0]
     big_ids = rng.permutation(big.nonzero()[0])[:COMPARE_BIG_LANES]
@@ -164,6 +169,72 @@ def compare_fused(index, sched, s_node, s_time, code, u, mode, rng):
             f"fused {mode}: too few tier-L lanes compared")
     return dict(tier_s=int((~sel_big).sum()), tier_l=int(sel_big.sum()),
                 max_abs_err=err), split, got, lanes
+
+
+def grouped_hop_plain(index, s_node, s_time, code, u, mode="index"):
+    """The fused hop by the grouped hop's exact plain functions, on every
+    lane: temporal_cutoff, then index_pick_lanes (index mode) or
+    weighted_pick_exp (weight mode, every code exponential), which equal
+    the fused semantics where pexp is non-decreasing. Returns (k, n, dst,
+    ts), 0 where n == 0."""
+    import torch
+    from repro_torch.core.samplers import index_pick_lanes, weighted_pick_exp
+    from repro_torch.core.temporal_index import node_range, temporal_cutoff
+    a, b = node_range(index, s_node)
+    c = temporal_cutoff(index, a, b, s_time)
+    n = b - c
+    if mode == "index":
+        k = c + index_pick_lanes(code, u, n)
+    else:
+        k = weighted_pick_exp(index.pexp, c, b, u)
+    has = n > 0
+    k = torch.where(has, k, 0)
+    return (k, n, torch.where(has, index.ns_dst[k.long()], 0),
+            torch.where(has, index.ns_ts[k.long()], 0))
+
+
+def compare_fused_grouped(index, sched, s_node, s_time, code, u, mode):
+    """Kernel hop vs ``grouped_hop_plain`` on every lane. Returns the lanes
+    compared, the live ones and max |diff|."""
+    from repro_torch.kernels import fused_step as kf
+    if mode == "weight":
+        require(bool((code == 2).all()), "weight mode: exponential only")
+        require(bool((index.pexp[1:] >= index.pexp[:-1]).all()),
+                "pexp is not non-decreasing")
+    got = kf.fused_walk_step(index, s_node, s_time, code, u, mode, sched)
+    want = grouped_hop_plain(index, s_node, s_time, code, u, mode)
+    err = 0
+    for name, g, w in zip(("k", "n", "dst", "ts"), got[:4], want):
+        diff = int((g.long() != w.long()).sum())
+        require(diff == 0, f"fused {mode} vs grouped: {diff} lanes differ in "
+                           f"{name}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    return dict(lanes=int(want[1].numel()), live=int((want[1] > 0).sum()),
+                max_abs_err=err)
+
+
+def fused_hop_reading(index, sched, s_node, s_time, code, u) -> dict:
+    """One fused hop (index mode) alone: profiler kernels and device ms of
+    one call, live lanes per tier, distinct regions of the live tier-L
+    lanes, and how many live tier-L lanes the tiles hold."""
+    import torch
+    from repro_torch.kernels import fused_step as kf
+    out = kf.fused_walk_step(index, s_node, s_time, code, u, "index", sched)
+    split = kf.tier_split(index, s_node, sched)
+    live = out.n > 0
+    live_l = live & split.big
+    per_tile = live_l.reshape(-1, sched.tile_walks).sum(1)
+    call = profile_call(lambda: kf.fused_walk_step(index, s_node, s_time,
+                                                   code, u, "index", sched))
+    return dict(**call, lanes=int(live.numel()),
+                tier_l_lanes=int(split.big.sum()),
+                live_tier_s=int((live & ~split.big).sum()),
+                live_tier_l=int(live_l.sum()),
+                distinct_live_tier_l_regions=int(
+                    torch.unique(split.a[live_l]).numel()),
+                tiles=int(per_tile.numel()),
+                tiles_with_live_tier_l=int((per_tile > 0).sum()),
+                max_live_tier_l_per_tile=int(per_tile.max()))
 
 
 def busy_us(spans) -> float:
@@ -771,15 +842,16 @@ def main(argv=None) -> int:
                           device=dev)
     cmp_index, split, _, lanes = compare_fused(
         idx, sched, s_node, s_time, code_exp, u, "index", rng)
-    # weight mode: mixed codes; lanes over hub regions larger than 2^16
-    # edges draw exponential (a binary search) instead of linear (a count
-    # over the region)
+    # weight mode: mixed codes on every lane, hub lanes included (their
+    # linear pick is a count over [c, b) by the lane's own thread)
     code_mix = (torch.arange(W, device=dev) % 3).to(torch.int32)
-    region = split.b - split.a
-    code_mix = torch.where(split.big & (region > (1 << 16)),
-                           BIAS_EXPONENTIAL, code_mix).to(torch.int32)
     cmp_weight, *_ = compare_fused(
         idx, sched, s_node, s_time, code_mix, u, "weight", rng)
+    cmp_grouped = dict(
+        index_mixed_codes=compare_fused_grouped(
+            idx, sched, s_node, s_time, code_mix, u, "index"),
+        weight_exponential=compare_fused_grouped(
+            idx, sched, s_node, s_time, code_exp, u, "weight"))
 
     # weight_prefix on the index's own exponential weights, against the
     # plain version's float64 prefix, in units of float32 roundoff of P
@@ -806,6 +878,10 @@ def main(argv=None) -> int:
     del wp_runs
     emit("kernels_vs_plain",
          fused_index=cmp_index, fused_weight=cmp_weight,
+         fused_weight_codes="uniform/linear/exponential by lane % 3, hub "
+                            "lanes included",
+         fused_vs_grouped_every_lane=cmp_grouped,
+         fused_tiers=split.tiers.tolist(),
          weight_prefix=dict(**wp_reading, monotone=True,
                             bitwise_equal_calls=3),
          lanes=W, tier_l_lanes=int(split.big.sum()),
@@ -824,13 +900,12 @@ def main(argv=None) -> int:
          tile_walks=sched_t.tile_walks, tile_edges=sched_t.tile_edges,
          window_edges=int(idx.num_edges))
 
+    # one fused hop alone, at the main path's shapes
+    emit("fused_hop", hop=3, **fused_hop_reading(idx, sched, s_node, s_time,
+                                                  code_exp, u))
+
     # timings at the main path's shapes (index mode, exponential bias)
-    out = tuple(torch.empty(W, dtype=torch.int32, device=dev)
-                for _ in range(4))
     tbase = idx.node_tbase[s_node.clamp(0, nc - 1).long()]
-    args_s = (split.base_blocks, split.a, split.b, split.big, s_time, u,
-              code_exp, tbase, idx.ns_ts[:E], idx.ns_dst[:E], idx.pexp,
-              idx.plin)
     args_ws = tiled_args(idx, (tiles.base_blocks, lo_t, hi_t), s_node,
                          s_time, u, "index", "exponential")
     args_hop = hop_args(idx, tiles.base_blocks, tiles.a, tiles.b, s_node,
@@ -843,11 +918,9 @@ def main(argv=None) -> int:
         "walk_step_tiled_tile_local": (
             lambda: kw.walk_step_tiled(*args_ws, **kw_ws),
             ("walk_step_kernel",)),
-        "fused_tier_s": (lambda: kf.fused_tier_s(
-            *args_s, mode="index", tile_walks=sched.tile_walks,
-            tile_edges=sched.tile_edges, out=out), ("fused_tier_s_kernel",)),
-        "fused_tier_l": (lambda: kf.fused_tier_l(
-            *args_s[1:], mode="index", out=out), ("fused_tier_l_kernel",)),
+        "fused_hop": (lambda: kf.fused_walk_step(
+            idx, s_node, s_time, code_exp, u, "index", sched),
+            ("fused_hop_kernel",)),
         "weight_prefix": (lambda: weight_prefix(dt, in_range),
                           ("weight_prefix_lookback",)),
     }
@@ -872,15 +945,14 @@ def main(argv=None) -> int:
                        reps=3)
     w_exp = torch.where(in_range, torch.exp(dt), 0.0)
     lib_wp = cuda_ms(lambda: torch.cumsum(w_exp, 0))
-    n_big = int(split.big.sum())
-    n_small = W - n_big
-    live = out[1] > 0
-    live_s = int((live & ~split.big).sum())
-    live_l = int((live & split.big).sum())
-    T = W // sched.tile_walks
-    lane_io = 5 * 4 + 1 + 4 * 4          # a, b, time, u, code, big; 4 outputs
-    bound_s = (n_small * lane_io + live_s * 8 + T * 4) / HBM_BYTES_PER_S * 1e3
-    bound_l = (n_big * lane_io + live_l * 8) / HBM_BYTES_PER_S * 1e3
+    plain_grouped = cuda_ms(lambda: grouped_hop_plain(idx, s_node, s_time,
+                                                      code_exp, u), reps=3)
+    # s_node, time, u, code and the two node_starts rows in; four int32
+    # out; one (dst, ts) row per live lane; tiers (index mode: no tbase)
+    live = kf.fused_walk_step(idx, s_node, s_time, code_exp, u, "index",
+                              sched).n > 0
+    bound_hop = (W * (6 * 4 + 4 * 4) + int(live.sum()) * 8 + 3 * 4) \
+        / HBM_BYTES_PER_S * 1e3
     bound_wp = (E * 5 + (E + 1) * 4) / HBM_BYTES_PER_S * 1e3
     n_hop = kw.walk_step_hop(*args_hop, **kw_ws)[1]
     bound_ws = walk_step_bound_ms(idx, sched_t, tiles, n_hop, "index",
@@ -900,7 +972,7 @@ def main(argv=None) -> int:
              lambda: two_stage_hop(idx, s_node, s_time, u, scfg_e, sched_t)),
          oversize_lanes=int(tiles.oversize.sum()),
          live_lanes=int((n_hop > 0).sum()))
-    del warm, idx, out, w_exp, dt, in_range, wp_k, wp_p, tiles, args_ws
+    del warm, idx, live, w_exp, dt, in_range, wp_k, wp_p, tiles, args_ws
     del lo_t, hi_t, args_hop, n_hop, one, two
     torch.cuda.empty_cache()
 
@@ -935,10 +1007,8 @@ def main(argv=None) -> int:
             f"hop validity {rep.hop_valid_frac} over {rep.num_hops} hops")
     require(evicted > 0, "the window evicted no edge")
     hops_per_batch = args.length
-    require(launches["fused_tier_s"] == hops_per_batch * K,
-            f"tier-S launches {launches['fused_tier_s']} != hops x batches")
-    require(launches["fused_tier_l"] == hops_per_batch * K,
-            f"tier-L launches {launches['fused_tier_l']} != hops x batches")
+    require(launches["fused_hop"] == hops_per_batch * K,
+            f"fused_hop launches {launches['fused_hop']} != hops x batches")
     require(launches["weight_prefix"] == 2 * K,
             f"weight_prefix launches {launches['weight_prefix']} != 2 x K")
     emit("main_path_profile", **profile_batch(engine, batches[-1], wcfg))
@@ -975,8 +1045,8 @@ def main(argv=None) -> int:
             "hops x batches")
     require(launches_t["weight_prefix"] == 2 * K,
             f"weight_prefix launches {launches_t['weight_prefix']} != 2 x K")
-    require(launches_t["fused_tier_s"] == launches_t["fused_tier_l"] == 0,
-            f"the tiled path launched the fused kernels: {launches_t}")
+    require(launches_t["fused_hop"] == 0,
+            f"the tiled path launched the fused hop: {launches_t}")
 
     # ---- phase 5: every layout, one key, full width -----------------------
     agree, shares, tier_stats = paths_agree(index_t, wcfg)
@@ -1011,7 +1081,7 @@ def main(argv=None) -> int:
         require(r.num_hops > 0 and r.hop_valid_frac == 1.0,
                 f"weight/{bias}: hop validity {r.hop_valid_frac}")
         require(all(got_launches[k] > 0 for k in
-                    ("fused_tier_s", "fused_tier_l", "weight_prefix")),
+                    ("fused_hop", "weight_prefix")),
                 f"weight/{bias}: a kernel was not launched: {got_launches}")
         weight_runs[bias] = dict(seconds=sec, hop_valid_frac=r.hop_valid_frac,
                                  num_hops=r.num_hops, launches=got_launches)
@@ -1046,25 +1116,20 @@ def main(argv=None) -> int:
     emit("small_replay_cuda_equals_cpu", ok=True, paths=["fused", "tiled"])
 
     # ---- kernels line, card line, contract line --------------------------
+    # tiers S and L are one launch, fused_hop: one row for each TPU kernel
+    fused_err = max([cmp_index["max_abs_err"], cmp_weight["max_abs_err"]]
+                    + [r["max_abs_err"] for r in cmp_grouped.values()])
     kernels = [
-        dict(name="fused_tier_s", route="cuda",
+        dict(name="fused_hop", route="cuda",
              source="src/repro_torch/csrc/fused_step.cu",
-             replaces="src/repro/kernels/fused_step.py:406",
-             launches=launches["fused_tier_s"],
-             max_abs_err=max(cmp_index["max_abs_err"],
-                             cmp_weight["max_abs_err"]),
-             **times["fused_tier_s"], plain_ms=plain_ms,
+             replaces=replaces, tier=tier, launches=launches["fused_hop"],
+             max_abs_err=fused_err, **times["fused_hop"], plain_ms=plain_ms,
              plain_lanes=int(lanes.numel()),
-             bound_ms=bound_s, bound_by="bytes", library_ms=None),
-        dict(name="fused_tier_l", route="cuda",
-             source="src/repro_torch/csrc/fused_step.cu",
-             replaces="src/repro/kernels/fused_step.py:450",
-             launches=launches["fused_tier_l"],
-             max_abs_err=max(cmp_index["max_abs_err"],
-                             cmp_weight["max_abs_err"]),
-             **times["fused_tier_l"], plain_ms=plain_ms,
-             plain_lanes=int(lanes.numel()),
-             bound_ms=bound_l, bound_by="bytes", library_ms=None),
+             grouped_plain_ms=plain_grouped, bound_ms=bound_hop,
+             bound_by="bytes", library_ms=None)
+        for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
+                               ("L", "src/repro/kernels/fused_step.py:450"))
+    ] + [
         dict(name="weight_prefix", route="cuda",
              source="src/repro_torch/csrc/weight_prefix.cu",
              replaces="src/repro/kernels/weight_prefix.py:54",

@@ -48,12 +48,18 @@
 //   * Float arithmetic is one correctly rounded operation at a time, in the
 //     reference's order, so the outputs equal the plain PyTorch versions
 //     (kernels/walk_step.py) bit for bit.
+#include "bulk.cuh"
 #include "samplers.cuh"
 
 namespace {
 
+using repro::bulk_copy;
+using repro::bulk_end;
 using repro::index_pick;
 using repro::index_uniform;
+using repro::mbar_expect;
+using repro::mbar_init;
+using repro::mbar_wait;
 using repro::upper_bound;
 
 constexpr int kBiasExponential = 2;
@@ -143,41 +149,6 @@ __device__ __forceinline__ int global_weight_pick(const float* pre,
   }
   const int kmax = b - 1 > c ? b - 1 : c;
   return k < c ? c : (k > kmax ? kmax : k);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-// 1-D bulk copy global -> shared; 16-byte aligned ends, bytes % 16 == 0
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // One lane's inputs, held from its task's staging to its search.
@@ -284,10 +255,8 @@ walk_step_kernel(const int* __restrict__ base_blocks,
       st.g0 = (st.base + mn) & ~3ll;
       const long long end_rows = st.base + min(mx + 1, P);
       const long long end_pre = st.base + mx + 1;
-      const long long whole = static_cast<long long>(E) & ~3ll;
-      const long long whole_pre = static_cast<long long>(E + 1) & ~3ll;
-      const long long bulk_rows = min((end_rows + 3) & ~3ll, whole);
-      const long long bulk_pre = min((end_pre + 3) & ~3ll, whole_pre);
+      const long long bulk_rows = bulk_end(end_rows, E);
+      const long long bulk_pre = bulk_end(end_pre, E + 1ll);
       const uint32_t bytes_rows = static_cast<uint32_t>(bulk_rows - st.g0) * 4;
       const uint32_t bytes_pre =
           kWeight ? static_cast<uint32_t>(bulk_pre - st.g0) * 4 : 0;

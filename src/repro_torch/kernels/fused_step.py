@@ -2,12 +2,11 @@
 
 One hop for lanes grouped by node: temporal cutoff, per-lane branchless
 biased draw (int32 bias code per lane), and the neighbour ``dst``/``ts``
-gather, in two kernels on the card:
+gather. The reference runs it as two Pallas kernels behind a tier split:
 
 * **tier S** — lanes whose region fits the tile's staged ``2·tile_edges``
-  panel (``fused_tier_s``, csrc/fused_step.cu);
-* **tier L** — the rest, one thread per lane over its own region
-  (``fused_tier_l``).
+  panel;
+* **tier L** — the rest (hubs), swept block by block.
 
 The tier split is the reference's (kernels/fused_step.py:360-370): each
 walk tile is anchored at ``base = clip(min(a)//TE, 0, E//TE − 2)·TE`` and
@@ -15,10 +14,12 @@ a lane is tier L when its region leaves ``[base, base + 2·TE)``. The
 ``tiers`` statistic is computed exactly as the reference computes it,
 including the ``bhi − blo + 1`` blocks a tile's tier-L sweep would cover.
 
-Each tier wrapper sends CUDA tensors to its kernel and CPU tensors to the
-plain version ``fused_step_plain`` — the tier-free semantics of the
-reference oracle kernels/ref.py::fused_step_ref, counting over each
-lane's own region in bounded chunks. Both compute identical bits.
+On the card ``fused_walk_step`` is one launch of ``fused_hop``
+(csrc/fused_step.cu), which serves both tiers and computes the anchors,
+the split and ``tiers`` itself. On CPU tensors it runs the plain versions:
+``tier_split`` and ``fused_step_plain`` — the tier-free semantics of the
+reference oracle kernels/ref.py::fused_step_ref, counting over each lane's
+own region in bounded chunks. Both compute identical bits.
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ from repro_torch.kernels import runtime
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_TIER_S_ARGS = [_I] + [_P] * 12 + [_I, _I, _I] + [_P] * 4 + [_P]
-_TIER_L_ARGS = [_I] + [_P] * 11 + [_I] + [_P] * 4 + [_P]
+_HOP_ARGS = [_I] + [_P] * 10 + [_I] * 5 + [_P] * 5 + [_P]
+_MAX_TILE_WALKS = 1024    # kMaxThreads in csrc/fused_step.cu
 _CHUNK = 1 << 22          # (lane, position) pairs per plain-version chunk
 
 
@@ -116,98 +117,8 @@ def fused_step_plain(ns_ts, ns_dst, pexp, plin, a, b, time, code, u, tbase,
             torch.where(has, ns_ts[kl], 0))
 
 
-def _plain_into(out, lanes, ns_ts, ns_dst, pexp, plin, a, b, time, code, u,
-                tbase, mode):
-    """Run the plain version on ``lanes`` and write its rows of ``out``."""
-    sub = lambda x: None if x is None else x[lanes]   # noqa: E731
-    res = fused_step_plain(ns_ts, ns_dst, pexp, plin, sub(a), sub(b),
-                           sub(time), sub(code), sub(u), sub(tbase),
-                           mode=mode)
-    for o, r in zip(out, res):
-        o[lanes] = r
-
-
 # ---------------------------------------------------------------------------
-# Kernel wrappers
-# ---------------------------------------------------------------------------
-
-
-def _check_lane_inputs(W, dev, a, b, big, time, u, code, tbase, weight):
-    for name, t in (("a", a), ("b", b), ("time", time), ("code", code)):
-        runtime.expect(t, name, torch.int32, (W,), dev)
-    runtime.expect(big, "big", torch.bool, (W,), dev)
-    runtime.expect(u, "u", torch.float32, (W,), dev)
-    if weight:
-        runtime.expect(tbase, "tbase", torch.int32, (W,), dev)
-
-
-def _check_edge_inputs(E, dev, ns_ts, ns_dst, pexp, plin, weight):
-    runtime.expect(ns_ts, "ns_ts", torch.int32, (E,), dev)
-    runtime.expect(ns_dst, "ns_dst", torch.int32, (E,), dev)
-    if weight:
-        runtime.expect(pexp, "pexp", torch.float32, (E + 1,), dev)
-        runtime.expect(plin, "plin", torch.float32, (E + 1,), dev)
-
-
-def fused_tier_s(base_blocks, a, b, big, time, u, code, tbase, ns_ts, ns_dst,
-                 pexp, plin, *, mode: str, tile_walks: int, tile_edges: int,
-                 out) -> None:
-    """Tier-S lanes (``~big``) of one hop, written into ``out`` =
-    (k, n, dst, ts). One CTA per tile of ``tile_walks`` lanes stages the
-    tile's ``2·tile_edges`` panel, anchored at ``base_blocks[t]``."""
-    weight = mode == "weight"
-    if a.device.type == "cpu":
-        _plain_into(out, ~big, ns_ts, ns_dst, pexp, plin, a, b, time, code,
-                    u, tbase, mode)
-        return
-    W, E, dev = a.shape[0], ns_ts.shape[0], a.device
-    _check_lane_inputs(W, dev, a, b, big, time, u, code, tbase, weight)
-    _check_edge_inputs(E, dev, ns_ts, ns_dst, pexp, plin, weight)
-    runtime.expect(base_blocks, "base_blocks", torch.int32,
-                   (W // tile_walks,), dev)
-    for i, o in enumerate(out):
-        runtime.expect(o, f"out[{i}]", torch.int32, (W,), dev)
-    if W == 0:
-        return
-    fn = runtime.kernel("repro_fused_tier_s", _TIER_S_ARGS)
-    p = runtime.ptr
-    status = fn(int(weight), p(base_blocks), p(a), p(b), p(big), p(time),
-                p(u), p(code), p(tbase if weight else None), p(ns_ts),
-                p(ns_dst), p(pexp if weight else None),
-                p(plin if weight else None), W, tile_walks, tile_edges,
-                *map(p, out), runtime.stream())
-    runtime.check(status, "fused_tier_s")
-    runtime.LAUNCHES["fused_tier_s"] += 1
-
-
-def fused_tier_l(a, b, big, time, u, code, tbase, ns_ts, ns_dst, pexp, plin,
-                 *, mode: str, out) -> None:
-    """Tier-L lanes (``big``) of one hop, written into ``out``: one thread
-    per lane over the lane's own region."""
-    weight = mode == "weight"
-    if a.device.type == "cpu":
-        _plain_into(out, big, ns_ts, ns_dst, pexp, plin, a, b, time, code,
-                    u, tbase, mode)
-        return
-    W, E, dev = a.shape[0], ns_ts.shape[0], a.device
-    _check_lane_inputs(W, dev, a, b, big, time, u, code, tbase, weight)
-    _check_edge_inputs(E, dev, ns_ts, ns_dst, pexp, plin, weight)
-    for i, o in enumerate(out):
-        runtime.expect(o, f"out[{i}]", torch.int32, (W,), dev)
-    if W == 0:
-        return
-    fn = runtime.kernel("repro_fused_tier_l", _TIER_L_ARGS)
-    p = runtime.ptr
-    status = fn(int(weight), p(a), p(b), p(big), p(time), p(u), p(code),
-                p(tbase if weight else None), p(ns_ts), p(ns_dst),
-                p(pexp if weight else None), p(plin if weight else None), W,
-                *map(p, out), runtime.stream())
-    runtime.check(status, "fused_tier_l")
-    runtime.LAUNCHES["fused_tier_l"] += 1
-
-
-# ---------------------------------------------------------------------------
-# Dispatch: tier split, both tiers, statistics
+# Dispatch: tier split and statistics (plain), the hop
 # ---------------------------------------------------------------------------
 
 
@@ -221,7 +132,8 @@ class TierSplit(NamedTuple):
 
 def tier_split(index: TemporalIndex, s_node: torch.Tensor,
                cfg: SchedulerConfig) -> TierSplit:
-    """The reference's tile-anchored tier split and its statistics."""
+    """The reference's tile-anchored tier split and its statistics: the
+    plain version of what ``fused_hop`` computes in the kernel."""
     tiles = tile_table(index, s_node, cfg)
     W = s_node.shape[0]
     TW, TE = cfg.tile_walks, cfg.tile_edges
@@ -249,25 +161,70 @@ def fused_walk_step(index: TemporalIndex, s_node: torch.Tensor,
                     mode: str, cfg: SchedulerConfig) -> FusedStepResult:
     """Fused hop for walks sorted by node, with per-lane int32 bias codes.
     Returns global pick positions, neighbourhood sizes, the gathered
-    ``dst``/``ts`` and the tier statistics."""
+    ``dst``/``ts`` and the tier statistics.
+
+    CUDA tensors go to one ``fused_hop`` launch (``s_node``/``s_time``/
+    ``code`` int32[W], ``u`` float32[W], contiguous); CPU tensors to
+    ``tier_split`` and ``fused_step_plain``."""
     if mode not in ("index", "weight"):
         raise ValueError(f"unknown sampler mode {mode!r}")
-    sp = tier_split(index, s_node, cfg)
-    W = s_node.shape[0]
     E = index.edge_capacity
-    nc = index.node_capacity
+    if s_node.device.type == "cpu":
+        sp = tier_split(index, s_node, cfg)
+        nc = index.node_capacity
+        tbase = index.node_tbase[s_node.clamp(0, nc - 1).long()]
+        out = fused_step_plain(index.ns_ts[:E], index.ns_dst[:E], index.pexp,
+                               index.plin, sp.a, sp.b,
+                               s_time.to(torch.int32), code.to(torch.int32),
+                               u, tbase, mode=mode)
+        return FusedStepResult(*out, tiers=sp.tiers)
+    return _launch(index, s_node, s_time, code, u, mode, cfg)
+
+
+def _launch(index: TemporalIndex, s_node, s_time, code, u, mode: str,
+            cfg: SchedulerConfig) -> FusedStepResult:
+    """Check the arguments and launch csrc/fused_step.cu once."""
+    weight = mode == "weight"
+    W, E, nc = s_node.shape[0], index.edge_capacity, index.node_capacity
+    TW, TE = cfg.tile_walks, cfg.tile_edges
     dev = s_node.device
-    tbase = index.node_tbase[s_node.clamp(0, nc - 1).long()]
-    out = tuple(torch.empty(W, dtype=torch.int32, device=dev)
-                for _ in range(4))
+    if W % TW or E % TE:
+        raise ValueError(f"walks {W} / edges {E} not multiples of tile "
+                         f"({TW}, {TE})")
+    if E // TE < 2:
+        raise ValueError(f"edge capacity {E} must span >= 2 tiles of {TE}")
+    if TW > _MAX_TILE_WALKS:
+        raise ValueError(f"tile_walks {TW} exceeds {_MAX_TILE_WALKS} "
+                         "(one thread per lane of a tile)")
+    for name, t in (("s_node", s_node), ("s_time", s_time), ("code", code)):
+        runtime.expect(t, name, torch.int32, (W,), dev)
+    runtime.expect(u, "u", torch.float32, (W,), dev)
+    runtime.expect(index.node_starts, "node_starts", torch.int32, (nc + 2,),
+                   dev)
     ns_ts, ns_dst = index.ns_ts[:E], index.ns_dst[:E]
-    s_time = s_time.to(torch.int32).contiguous()
-    code = code.to(torch.int32).contiguous()
-    u = u.contiguous()
-    fused_tier_s(sp.base_blocks, sp.a, sp.b, sp.big, s_time, u, code, tbase,
-                 ns_ts, ns_dst, index.pexp, index.plin, mode=mode,
-                 tile_walks=cfg.tile_walks, tile_edges=cfg.tile_edges,
-                 out=out)
-    fused_tier_l(sp.a, sp.b, sp.big, s_time, u, code, tbase, ns_ts, ns_dst,
-                 index.pexp, index.plin, mode=mode, out=out)
-    return FusedStepResult(*out, tiers=sp.tiers)
+    staged = [("ns_ts", ns_ts), ("ns_dst", ns_dst)]
+    for name, t in staged:
+        runtime.expect(t, name, torch.int32, (E,), dev)
+    if weight:
+        runtime.expect(index.node_tbase, "node_tbase", torch.int32, (nc,),
+                       dev)
+        staged += [("pexp", index.pexp), ("plin", index.plin)]
+        for name, t in staged[2:]:
+            runtime.expect(t, name, torch.float32, (E + 1,), dev)
+    for name, t in staged:     # the bulk copies read 16-byte aligned rows
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    out = torch.empty((4, W), dtype=torch.int32, device=dev)
+    tiers = torch.zeros(3, dtype=torch.int32, device=dev)
+    if W == 0:
+        return FusedStepResult(*out, tiers=tiers)
+    fn = runtime.kernel("repro_fused_hop", _HOP_ARGS)
+    p = runtime.ptr
+    status = fn(int(weight), p(s_node), p(s_time), p(u), p(code),
+                p(index.node_starts), p(index.node_tbase if weight else None),
+                p(ns_ts), p(ns_dst), p(index.pexp if weight else None),
+                p(index.plin if weight else None), W, TW, TE, E, nc,
+                *map(p, out), p(tiers), runtime.stream())
+    runtime.check(status, "fused_hop")
+    runtime.LAUNCHES["fused_hop"] += 1
+    return FusedStepResult(*out, tiers=tiers)

@@ -31,8 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false",
                            "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {
-    "fused_tier_s": 0,
-    "fused_tier_l": 0,
+    "fused_hop": 0,
     "weight_prefix": 0,
     "walk_step_tiled": 0,
 }

@@ -46,30 +46,55 @@ def _index(device, N=256, num_edges=15000, E=16384, seed=0):
                                          device=device), N)
 
 
-@pytest.mark.parametrize("mode", ["index", "weight"])
-def test_fused_kernels_match_plain(card, mode):
-    idx = _index(card)
+def _fused_cases(card):
+    """(index, s_node, s_time, u, code, cfg): a power-law graph at the
+    default tiles, the same graph at 64-lane tiles with most lanes dead,
+    mixed tiles on the boundary graph (both tiers, exact fits, empty
+    regions at the store's end), and one-lane tiles there."""
     rng = np.random.default_rng(1)
     W = 2048
-    nodes = torch.sort(torch.as_tensor(
-        rng.integers(0, 256, W).astype(np.int32), device=card)).values
-    times = torch.as_tensor(rng.integers(0, 10_000, W).astype(np.int32),
-                            device=card)
-    u = torch.as_tensor(rng.uniform(size=W).astype(np.float32), device=card)
-    code = torch.as_tensor(rng.integers(0, 3, W).astype(np.int32),
-                           device=card)
-    cfg = SchedulerConfig(path="fused", tile_walks=256, tile_edges=1024)
-    before = dict(runtime.LAUNCHES)
-    got = kf.fused_walk_step(idx, nodes, times, code, u, mode, cfg)
-    assert runtime.LAUNCHES["fused_tier_s"] == before["fused_tier_s"] + 1
-    assert runtime.LAUNCHES["fused_tier_l"] == before["fused_tier_l"] + 1
-    sp = kf.tier_split(idx, nodes, cfg)
-    assert int(sp.big.sum()) > 0 and int((~sp.big).sum()) > 0
-    tbase = idx.node_tbase[nodes.long()]
-    want = kf.fused_step_plain(idx.ns_ts, idx.ns_dst, idx.pexp, idx.plin,
-                               sp.a, sp.b, times, code, u, tbase, mode=mode)
-    for g, w in zip(got[:4], want):
-        assert torch.equal(g, w)
+    idx = _index(card)
+    nodes = np.sort(rng.integers(0, 256, W)).astype(np.int32)
+    times = rng.integers(0, 10_000, W).astype(np.int32)
+    u = rng.uniform(size=W).astype(np.float32)
+    code = rng.integers(0, 3, W).astype(np.int32)
+    yield idx, nodes, times, u, code, SchedulerConfig(
+        path="fused", tile_walks=256, tile_edges=1024)
+    late = np.where(rng.uniform(size=W) < 0.9, 1 << 30, times)
+    yield idx, nodes, late.astype(np.int32), u, code, SchedulerConfig(
+        path="fused", tile_walks=64, tile_edges=256)
+    nodes = np.asarray([0, 0, 3, 3, 1, 2, 3, 5, 4, 5, 5, 7, 5, 5, 6, 7],
+                       np.int32)
+    times = np.asarray([-1, 30, 305, 400, 0, 203, 299, 515, 410, 499, 531,
+                        0, 501, 530, 0, 999], np.int32)
+    yield _boundary_index(card), nodes, times, u[:16], code[:16], \
+        SchedulerConfig(path="fused", tile_walks=4, tile_edges=8)
+    yield _boundary_index(card), nodes, times, u[:16], code[:16], \
+        SchedulerConfig(path="fused", tile_walks=1, tile_edges=8)
+
+
+@pytest.mark.parametrize("mode", ["index", "weight"])
+def test_fused_kernels_match_plain(card, mode):
+    """One fused_hop launch per call; k/n/dst/ts equal fused_step_plain on
+    every lane and ``tiers`` equals tier_split's."""
+    tiers = []
+    for idx, *lanes, cfg in _fused_cases(card):
+        nodes, times, u, code = (torch.as_tensor(x, device=card)
+                                 for x in lanes)
+        before = runtime.LAUNCHES["fused_hop"]
+        got = kf.fused_walk_step(idx, nodes, times, code, u, mode, cfg)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_hop"] == before + 1
+        sp = kf.tier_split(idx, nodes, cfg)
+        tiers.append(sp.tiers.tolist())
+        tbase = idx.node_tbase[nodes.long()]
+        want = kf.fused_step_plain(idx.ns_ts, idx.ns_dst, idx.pexp,
+                                   idx.plin, sp.a, sp.b, times, code, u,
+                                   tbase, mode=mode)
+        for g, w in zip(got[:4], want):
+            assert torch.equal(g, w)
+        assert torch.equal(got.tiers, sp.tiers)
+    assert all(s > 0 and big > 0 for s, big, _ in tiers[:3]), tiers
 
 
 def _boundary_index(device):

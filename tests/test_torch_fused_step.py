@@ -1,7 +1,8 @@
 """Port fused hop (repro_torch.kernels.fused_step) vs the JAX reference.
 
-On the CPU both tier wrappers take the plain version. Its k/n/dst/ts and
-the ``tiers`` statistic must equal, bitwise, the Pallas kernel run in
+On the CPU ``fused_walk_step`` takes the plain versions (``tier_split``
+and ``fused_step_plain``). Its k/n/dst/ts and the ``tiers`` statistic must
+equal, bitwise, the Pallas kernel run in
 interpret mode (as tests/test_fused_step.py runs it) and the tier-free
 oracle kernels/ref.py::fused_step_ref, in both sampler modes: on random
 graphs with mixed bias codes, on the crafted tile-boundary lanes of
@@ -157,36 +158,6 @@ def test_fused_on_port_built_index():
         SchedulerConfig(path="fused", tile_walks=64, tile_edges=256))
     for g_, w in zip(got, want):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
-
-
-def test_tier_wrappers_fill_their_own_lanes():
-    """fused_tier_s writes exactly the tier-S lanes, fused_tier_l exactly
-    the tier-L lanes; together they equal the tier-free plain hop."""
-    j_idx = _graph_index(128, 1948, seed=2)
-    t_idx = interop.index_from_ref(j_idx, device="cpu")
-    nodes, times, u, code = map(torch.from_numpy, _lane_inputs(3, 256, 128))
-    cfg = SchedulerConfig(path="fused", tile_walks=64, tile_edges=256)
-    sp = kf.tier_split(t_idx, nodes, cfg)
-    tbase = t_idx.node_tbase[nodes.long()]
-    E = t_idx.edge_capacity
-    full = kf.fused_step_plain(t_idx.ns_ts, t_idx.ns_dst, t_idx.pexp,
-                               t_idx.plin, sp.a, sp.b, times, code, u, tbase,
-                               mode="weight")
-    for tier, mask in (("s", ~sp.big), ("l", sp.big)):
-        out = tuple(torch.full((256,), -7, dtype=torch.int32)
-                    for _ in range(4))
-        if tier == "s":
-            kf.fused_tier_s(sp.base_blocks, sp.a, sp.b, sp.big, times, u,
-                            code, tbase, t_idx.ns_ts[:E], t_idx.ns_dst[:E],
-                            t_idx.pexp, t_idx.plin, mode="weight",
-                            tile_walks=64, tile_edges=256, out=out)
-        else:
-            kf.fused_tier_l(sp.a, sp.b, sp.big, times, u, code, tbase,
-                            t_idx.ns_ts[:E], t_idx.ns_dst[:E], t_idx.pexp,
-                            t_idx.plin, mode="weight", out=out)
-        for o, f in zip(out, full):
-            assert torch.equal(o[mask], f[mask])
-            assert bool((o[~mask] == -7).all())
 
 
 def test_fused_rejects_bad_shapes():
