@@ -14,8 +14,11 @@ tile-local contract), times one fused hop alone, drives the streaming
 main path (ingest -> index rebuild -> fused-hop walks) at full size
 through ``StreamingEngine.replay_device``, replays the same stream on the
 tiled path, holds the seven first-order layouts to byte-identical walks
-at full width, runs weight mode at a reduced window, and prints one JSON
-line per phase. The last three lines are the kernels table, the card's
+at full width, runs weight mode at a reduced window, serves 1,024 walk
+queries through ``WalkService`` on the fused path against the main
+path's window while its next batch is ingested (checked against solo
+runs, the grouped path, a synchronous ring and the CPU), and prints one
+JSON line per phase. The last three lines are the kernels table, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero. With no CUDA device, or without the package next
 to it, it exits 2 and prints no result.
@@ -765,8 +768,377 @@ def paths_agree(index, wcfg):
                 weight_tiled_vs_grouped=weight), share.reading(), stats
 
 
+# the serving phase: queries in all, per wave, and compared with solo runs
+SERVE_QUERIES = 1024
+SERVE_WAVE = 64
+SERVE_SOLO = 64
+# window batches ingested before serving; the next is ingested while
+# serving (begin_ingest after half the waves, publish two waves later)
+SERVE_WINDOW_BATCHES = 12
+SERVE_HUB_SHARE = 0.01
+SERVE_TILE_WALKS = 64
+
+
+def serve_traffic(rng, num_nodes, hubs, n=SERVE_QUERIES):
+    """The serving phase's queries: ~70% nodes mode with 1-64 start nodes,
+    half of them drawn from ``hubs``; ~30% edges mode with 16-256 walks;
+    bias, start bias and max_length 3-80 at random; distinct seeds."""
+    import numpy as np
+    from repro_torch.serve import WalkQuery
+    biases = ("uniform", "linear", "exponential")
+    seeds = rng.choice(1 << 30, size=n, replace=False) - (1 << 29)
+    out = []
+    for seed in seeds:
+        bias, start_bias = (biases[i] for i in rng.integers(0, 3, 2))
+        length = int(rng.integers(3, 81))
+        if rng.uniform() < 0.7:
+            k = int(rng.integers(1, 65))
+            starts = np.where(rng.uniform(size=k) < 0.5,
+                              rng.choice(hubs, size=k),
+                              rng.integers(0, num_nodes, size=k))
+            out.append(WalkQuery(start_nodes=tuple(int(v) for v in starts),
+                                 bias=bias, max_length=length,
+                                 seed=int(seed)))
+        else:
+            out.append(WalkQuery(num_walks=int(rng.integers(16, 257)),
+                                 start_mode="edges", bias=bias,
+                                 start_bias=start_bias, max_length=length,
+                                 seed=int(seed)))
+    return out
+
+
+def drive_serve(svc, queries, next_batch, observe=None, wave=SERVE_WAVE):
+    """Serve ``queries`` in waves of ``wave``: submit a wave, tick(),
+    and while queries of the wave wait for room in the in-flight ring,
+    harvest the ring and tick() again, so a batch's queries and snapshot
+    version do not depend on device timing. ``begin_ingest(next_batch)``
+    runs after half the waves and ``publish()`` two waves later.
+    ``observe(wcfg)`` is called for every batch launched. Returns
+    ({ticket: result}, wall seconds, {version: pinned window})."""
+    import torch
+    launch = svc._launch_lanes
+
+    def observed(params, wcfg, pin, **kw):
+        observe(wcfg)
+        return launch(params, wcfg, pin, **kw)
+    if observe is not None:
+        svc._launch_lanes = observed
+    states = {svc.snapshots.version: svc.snapshots.current}
+    waves = [queries[i:i + wave] for i in range(0, len(queries), wave)]
+    tickets = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w, qs in enumerate(waves):
+        if w == len(waves) // 2:
+            svc.begin_ingest(*next_batch)
+        if w == len(waves) // 2 + 2:
+            svc.publish()
+            states[svc.snapshots.version] = svc.snapshots.current
+        tickets += [svc.submit(q) for q in qs]
+        svc.tick()
+        while svc.pending_count:
+            svc.pump(block=True)
+            svc.tick()
+    svc.pump(block=True)
+    secs = time.perf_counter() - t0
+    svc._launch_lanes = launch
+    require(None not in tickets, "serve: a query was dropped at submit")
+    return {t: svc.poll(t) for t in tickets}, secs, states
+
+
+def results_differ(a: dict, b: dict) -> int:
+    """Tickets whose (nodes, times, lengths, snapshot_version) differ."""
+    import numpy as np
+    return sum(not (np.array_equal(a[t].nodes, b[t].nodes)
+                    and np.array_equal(a[t].times, b[t].times)
+                    and np.array_equal(a[t].lengths, b[t].lengths)
+                    and a[t].snapshot_version == b[t].snapshot_version)
+               for t in a)
+
+
+def no_host_sync(fn):
+    """``fn`` under torch.cuda.set_sync_debug_mode("error"): any call that
+    waits for the device inside it raises."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return run
+
+
+def served_validity(results: dict, states: dict, max_length: int) -> dict:
+    """Hop validity of every served walk against the window of the version
+    its result reports."""
+    import numpy as np
+    import torch
+    from repro_torch.core.validation import validate_walks
+    from repro_torch.core.walk_engine import NODE_PAD, WalkResult
+    out = {}
+    for version, state in states.items():
+        rs = [r for r in results.values() if r.snapshot_version == version]
+        require(rs, f"serve: no result ran against version {version}")
+        pad = lambda x: np.pad(  # noqa: E731
+            x, ((0, 0), (0, max_length + 1 - x.shape[1])),
+            constant_values=NODE_PAD)
+        dev = state.index.ns_ts.device
+        walks = WalkResult(*(torch.as_tensor(np.concatenate(x), device=dev)
+                             for x in ([pad(r.nodes) for r in rs],
+                                       [pad(r.times) for r in rs],
+                                       [r.lengths for r in rs])))
+        rep = validate_walks(state.index, walks)
+        require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+                f"serve: hop validity {rep.hop_valid_frac} at version "
+                f"{version}")
+        out[str(version)] = dict(queries=len(rs), walks=rep.num_walks,
+                                 num_hops=rep.num_hops,
+                                 hop_valid_frac=rep.hop_valid_frac)
+    return out
+
+
+def lane_hop_inputs(index, key, lanes, wcfg, scfg, sched, hops: int):
+    """Lane-order inputs of the fused hop after ``hops`` hops of a lane
+    batch (what generate_walk_lanes hands fused_hop at hop ``hops``)."""
+    import torch
+    from repro_torch.core import walk_engine as we
+    lane_keys = we._lane_keys(key, lanes)
+    carry = we.start_walks(index, wcfg, scfg, key, lanes=lanes,
+                           lane_keys=lane_keys)
+    us = we._lane_uniform(lane_keys, torch.arange(
+        1, hops + 2, device=lane_keys.device)[:, None])
+    for step in range(hops):
+        carry = we._hop_fused_bucket(
+            index, scfg, sched, carry, step, None, lane_bias=lanes.bias,
+            lane_u=us[step], lane_limit=(step + 1) <= lanes.max_len)
+    lane, s_node, s_time, _, _ = we._bucket_prologue(index, sched, carry)
+    order = lane.long()
+    return (s_node, s_time.contiguous(), lanes.bias[order].contiguous(),
+            us[hops][order].contiguous())
+
+
+def profile_lane_batch(call, hops: int, draw_call) -> dict:
+    """Device kernels, busy ms and idle share of one lane batch, from a
+    torch.profiler trace; the kernels of its all-hops lane draw alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(spans) / 1e3
+    draw = profile_call(draw_call)["kernels"]
+    return dict(kernels=len(spans), kernels_per_hop=len(spans) / hops,
+                draw_kernels=draw,
+                kernels_per_hop_without_draw=(len(spans) - draw) / hops,
+                device_busy_ms=busy, traced_wall_ms=wall_ms,
+                device_idle_share=1 - busy / wall_ms, hops=hops)
+
+
+def serve_window(cfg, serve_cfg, batches, dev):
+    """A WalkService over the first SERVE_WINDOW_BATCHES batches of the
+    main path's stream, ingested one by one."""
+    import torch
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkService
+    svc = WalkService(cfg, serve_cfg, batch_capacity=max(
+        len(b[0]) for b in batches), registry=MetricsRegistry(), device=dev)
+    t0 = time.perf_counter()
+    for b in batches[:SERVE_WINDOW_BATCHES]:
+        svc.ingest(*b)
+    torch.cuda.synchronize()
+    return svc, time.perf_counter() - t0
+
+
+def serve_path(args, cfg, batches, dev) -> dict:
+    """The serving path at full size: SERVE_QUERIES queries on the main
+    path's window through WalkService on the fused path, with an ingest
+    overlapped; checked against solo runs, the grouped path and the
+    synchronous ring, for hop validity and for host syncs in the launch.
+    Returns the phase reading and the fused_hop numbers at a served
+    batch's shapes."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import (SchedulerConfig, ServeConfig,
+                                          WalkConfig)
+    from repro_torch.core import walk_engine as we
+    from repro_torch.kernels import fused_step as kf
+    from repro_torch.kernels import runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkQuery, WalkService, pack_queries
+    require(len(batches) > SERVE_WINDOW_BATCHES,
+            f"serve: needs more than {SERVE_WINDOW_BATCHES} batches")
+    rng = np.random.default_rng(3)
+    # 64-lane tiles: every lane bucket of the default ServeConfig is a
+    # whole number of tiles, as the fused hop requires
+    sched = SchedulerConfig(path="fused", regroup="bucket",
+                            tile_walks=SERVE_TILE_WALKS)
+    cfg_f = dataclasses.replace(cfg, scheduler=sched)
+    svc, window_s = serve_window(cfg_f, ServeConfig(), batches, dev)
+    nc = cfg.window.node_capacity
+    idx = svc.snapshots.current.index
+    deg = idx.node_starts[1:nc + 1] - idx.node_starts[:nc]
+    hubs = torch.topk(deg, max(1, int(nc * SERVE_HUB_SHARE))).indices
+    hubs = hubs.cpu().numpy()
+    queries = serve_traffic(rng, nc, hubs)
+    next_batch = batches[SERVE_WINDOW_BATCHES]
+
+    # the main path: counts set to 0 just before, read just after
+    hops = []
+    svc._launch = no_host_sync(svc._launch)
+    runtime.reset_launches()
+    results, secs, states = drive_serve(
+        svc, queries, next_batch,
+        observe=lambda w: hops.append(w.max_length
+                                      - (w.start_mode == "edges")))
+    launches = dict(runtime.LAUNCHES)
+    st = svc.stats
+    require(st.completed == len(queries) and st.dropped == 0
+            and all(r is not None for r in results.values()),
+            f"serve: {st.completed} of {len(queries)} completed, "
+            f"{st.dropped} dropped")
+    require(launches["fused_hop"] == sum(hops),
+            f"serve: fused_hop launches {launches['fused_hop']} != hops "
+            f"served {sum(hops)}")
+    require(launches["walk_step_tiled"] == 0,
+            f"serve: walk_step_tiled launched: {launches}")
+    require(launches["weight_prefix"] == 2,
+            f"serve: weight_prefix launches {launches['weight_prefix']} "
+            "!= 2 for one begin_ingest")
+    validity = served_validity(results, states, 80)
+
+    # solo runs at the exact query shape (one-lane tiles), against the
+    # window of the version each result reports
+    solo_cfg = dataclasses.replace(cfg, scheduler=dataclasses.replace(
+        sched, tile_walks=1))
+    solo = {v: WalkService(solo_cfg, state=state, registry=MetricsRegistry())
+            for v, state in states.items()}
+    picked = rng.choice(sorted(results), size=SERVE_SOLO, replace=False)
+    solo_differ = 0
+    for t in picked:
+        r = results[int(t)]
+        got = solo[r.snapshot_version].run_query_solo(r.query)
+        solo_differ += not all(np.array_equal(a, b) for a, b in zip(
+            got, (r.nodes, r.times, r.lengths)))
+    require(solo_differ == 0,
+            f"serve: {solo_differ} of {SERVE_SOLO} queries differ from solo")
+    del solo
+
+    # one 4096-lane x 80 batch: kernels per dispatch and per hop, device
+    # busy share; fused_hop at its shapes against the plain version
+    W, L = 4096, 80
+    per = W // 64
+    prof_q = [WalkQuery(
+        start_nodes=tuple(int(v) for v in np.where(
+            rng.uniform(size=per) < 0.5, rng.choice(hubs, size=per),
+            rng.integers(0, nc, size=per))),
+        bias=("uniform", "linear", "exponential")[i % 3], max_length=L,
+        seed=7 * i + 1) for i in range(64)]
+    params, _ = pack_queries(prof_q, W, L, device=dev)
+    wcfg = WalkConfig(num_walks=W, max_length=L, start_mode="nodes")
+    index = states[max(states)].index
+    key = svc.base_key
+    profile = profile_lane_batch(
+        lambda: we.generate_walk_lanes(index, key, params, wcfg,
+                                       cfg.sampler, sched), L,
+        lambda: we._lane_uniform(we._lane_keys(key, params), torch.arange(
+            1, L + 1, device=dev)[:, None]))
+    s_node, s_time, code, u = lane_hop_inputs(index, key, params, wcfg,
+                                              cfg.sampler, sched, hops=3)
+    cmp_serve, _, out, _ = compare_fused(index, sched, s_node, s_time, code,
+                                         u, "index", rng)
+    call = lambda: kf.fused_walk_step(  # noqa: E731
+        index, s_node, s_time, code, u, "index", sched)
+    hop_ms = device_ms(call, ("fused_hop_kernel",))
+    live = int((out.n > 0).sum())
+    bound = (W * (6 * 4 + 4 * 4) + live * 8 + 3 * 4) / HBM_BYTES_PER_S * 1e3
+    reading = dict(
+        queries=len(queries), window_batches=SERVE_WINDOW_BATCHES,
+        window_edges=int(states[min(states)].index.num_edges),
+        window_ingest_seconds=window_s, seconds=secs,
+        walks=st.walks, hops=st.hops, walks_per_s=st.walks_per_s,
+        hops_per_s=st.steps_per_s, walks_per_wall_s=st.walks / secs,
+        hops_per_wall_s=st.hops / secs, p50_ms=st.p50_ms, p99_ms=st.p99_ms,
+        batches=st.batches, lane_occupancy=st.lane_occupancy,
+        lanes_dispatched=st.lanes_dispatched, lanes_live=st.lanes_live,
+        hops_launched=sum(hops), launches=launches,
+        versions=sorted(states), validity=validity,
+        solo_equal=SERVE_SOLO, launch_host_syncs=0,
+        tile_walks=SERVE_TILE_WALKS, batch_4096x80=profile,
+        fused_hop_4096=dict(hop=3, lanes=W, live_lanes=live, ms=hop_ms,
+                            issue_ms=cuda_ms(call), bound_ms=bound,
+                            vs_plain=cmp_serve))
+    del svc, states, index, params, s_node, s_time, code, u, out, idx, deg
+    torch.cuda.empty_cache()
+
+    # the same traffic on the grouped path and on a synchronous ring
+    for name, c, serve_cfg in (
+            ("grouped", dataclasses.replace(cfg, scheduler=dataclasses.replace(
+                sched, path="grouped")), ServeConfig()),
+            ("max_inflight_1", cfg_f, ServeConfig(max_inflight=1))):
+        other, _ = serve_window(c, serve_cfg, batches, dev)
+        got, other_secs, _ = drive_serve(other, queries, next_batch)
+        differ = results_differ(results, got)
+        require(differ == 0, f"serve: {differ} tickets differ on {name}")
+        reading[f"equal_{name}"] = dict(tickets=len(got), differ=differ,
+                                        seconds=other_secs)
+        del other, got
+        torch.cuda.empty_cache()
+    return dict(reading=reading, launches=launches, fused_max_abs_err=(
+        cmp_serve["max_abs_err"]), fused_hop=dict(
+            serve_launches=launches["fused_hop"], serve_lanes=W,
+            serve_tile_walks=SERVE_TILE_WALKS, serve_ms=hop_ms,
+            serve_bound_ms=bound))
+
+
+def serve_cuda_equals_cpu(dev) -> dict:
+    """The same queries served on a tiny window on the card and on the
+    CPU: equal results for every ticket."""
+    import numpy as np
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, ServeConfig,
+                                          WindowConfig)
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkService
+    g = powerlaw_temporal_graph(512, 1 << 15, skew=1.2, t_max=100_000,
+                                seed=2)
+    stream = list(chronological_batches(g, 4))
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
+                            node_capacity=512),
+        sampler=SamplerConfig(mode="index"),
+        scheduler=SchedulerConfig(path="fused", tile_walks=64,
+                                  tile_edges=256))
+    queries = serve_traffic(np.random.default_rng(4), 512,
+                            np.arange(8), n=48)
+    out = {}
+    for d in (dev, "cpu"):
+        svc = WalkService(cfg, ServeConfig(), batch_capacity=1 << 13,
+                          registry=MetricsRegistry(), device=d)
+        for b in stream[:3]:
+            svc.ingest(*b)
+        out[str(d)], _, _ = drive_serve(svc, queries, stream[3], wave=8)
+    differ = results_differ(out[str(dev)], out["cpu"])
+    require(differ == 0, f"serve: {differ} tickets differ, card vs CPU")
+    return dict(tickets=len(queries), differ=differ,
+                versions=sorted({r.snapshot_version
+                                 for r in out["cpu"].values()}))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1115,10 +1487,17 @@ def main(argv=None) -> int:
         require(same, f"small replay ({path}): card and CPU walks differ")
     emit("small_replay_cuda_equals_cpu", ok=True, paths=["fused", "tiled"])
 
+    # ---- phase 7: the serving path at full size ---------------------------
+    serve = serve_path(args, cfg, batches, dev)
+    emit("serve_path", **serve["reading"])
+    emit("serve_cuda_equals_cpu", **serve_cuda_equals_cpu(dev))
+    emit("total", seconds=time.perf_counter() - t_start)
+
     # ---- kernels line, card line, contract line --------------------------
     # tiers S and L are one launch, fused_hop: one row for each TPU kernel
     fused_err = max([cmp_index["max_abs_err"], cmp_weight["max_abs_err"]]
                     + [r["max_abs_err"] for r in cmp_grouped.values()])
+    fused_err = max(fused_err, serve["fused_max_abs_err"])
     kernels = [
         dict(name="fused_hop", route="cuda",
              source="src/repro_torch/csrc/fused_step.cu",
@@ -1126,7 +1505,7 @@ def main(argv=None) -> int:
              max_abs_err=fused_err, **times["fused_hop"], plain_ms=plain_ms,
              plain_lanes=int(lanes.numel()),
              grouped_plain_ms=plain_grouped, bound_ms=bound_hop,
-             bound_by="bytes", library_ms=None)
+             bound_by="bytes", library_ms=None, **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
     ] + [
@@ -1134,6 +1513,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/csrc/weight_prefix.cu",
              replaces="src/repro/kernels/weight_prefix.py:54",
              launches=launches["weight_prefix"],
+             serve_launches=serve["launches"]["weight_prefix"],
              max_abs_err=wp_max_err,
              **times["weight_prefix"], plain_ms=plain_wp, bound_ms=bound_wp,
              bound_by="bytes", library_ms=lib_wp),

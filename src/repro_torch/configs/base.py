@@ -7,7 +7,7 @@ nothing of it. Everything is a frozen dataclass, so configs hash.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -25,8 +25,8 @@ class SamplerConfig:
     """Temporal bias sampling (paper §2.5).
 
     The port serves ``bias`` uniform | linear | exponential in both modes;
-    ``bias="table"`` and node2vec (p, q) != (1, 1) are refused by
-    ``core.walk_engine.check_capabilities`` on the fused path.
+    ``core.walk_engine.check_capabilities`` raises "not yet ported" for
+    ``bias="table"`` and node2vec (p, q) != (1, 1).
     """
 
     bias: str = "exponential"         # uniform | linear | exponential | table
@@ -41,8 +41,8 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class SchedulerConfig:
-    """Per-hop dispatch (paper §2.4). The port runs ``path="fused"`` with
-    ``regroup="bucket"``; other paths raise "not yet ported"."""
+    """Per-hop dispatch (paper §2.4): every path and regroup of the
+    reference."""
 
     path: str = "grouped"             # fullwalk | grouped | tiled | fused
     regroup: str = "bucket"           # bucket | lexsort
@@ -62,6 +62,31 @@ class WalkConfig:
     max_length: int = 80
     start_mode: str = "nodes"         # nodes | edges | all_nodes
     direction: str = "forward"
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Walk-query serving layer (repro_torch.serve, DESIGN.md §11).
+
+    A coalesced batch always runs at a bucketed (lane count, length), never
+    at the exact query shape; buckets are sorted ascending and the largest
+    lane bucket is the lane budget of one batch. ``max_inflight`` bounds
+    the ring of launched, unharvested batches (1 is the synchronous loop);
+    ``linger_s`` keeps a partly filled batch open to late same-group
+    queries until its head query has waited that long; ``admission`` is
+    the head-of-line order, ``"fifo"`` or ``"edf"`` (earliest
+    ``WalkQuery.deadline_s`` first). ``num_shards`` > 0 (sharded serving)
+    is not yet ported.
+    """
+
+    queue_capacity: int = 1024        # pending-query slots; beyond -> dropped
+    lane_buckets: Tuple[int, ...] = (64, 256, 1024, 4096)
+    length_buckets: Tuple[int, ...] = (4, 8, 16, 32, 80)
+    drop_oversize: bool = True        # False: oversize submits raise (typed)
+    num_shards: int = 0               # 0 = single window
+    max_inflight: int = 4             # in-flight batch ring depth (>= 1)
+    linger_s: float = 0.0             # continuous-batching seal deadline
+    admission: str = "fifo"           # fifo | edf
 
 
 @dataclass(frozen=True)

@@ -104,6 +104,21 @@ def index_pick_lanes(code: torch.Tensor, u: torch.Tensor,
                        torch.where(code == BIAS_LINEAR, i_lin, i_exp))
 
 
+def pick_in_neighborhood_lanes(index, code: torch.Tensor, c: torch.Tensor,
+                               b: torch.Tensor,
+                               u: torch.Tensor) -> torch.Tensor:
+    """Per-lane-bias pick of k ∈ [c, b); index-mode closed forms only.
+    Valid only where b > c (the caller masks empty neighbourhoods)."""
+    return c + index_pick_lanes(code, u, b - c)
+
+
+def pick_start_edges_lanes(index, code: torch.Tensor,
+                           u: torch.Tensor) -> torch.Tensor:
+    """Per-lane-bias start-edge sampling over the timestamp view."""
+    n = index.num_edges.to(torch.int32).expand(u.shape)
+    return index_pick_lanes(code, u, n)
+
+
 def _shifted_lower_bound(prefix: torch.Tensor, lo: torch.Tensor,
                          hi: torch.Tensor, target: torch.Tensor
                          ) -> torch.Tensor:

@@ -8,13 +8,20 @@ replay_device`` reads them with one host synchronisation at the end —
 the reference's ``replay_scan``, with its ``lax.scan`` written as a
 Python loop over device-resident batches.
 
-The engine has ``probes=False`` semantics: no metrics registry yet.
+``StreamingEngine.replay`` is the host loop: one ingest and one
+walk batch per edge batch, each waited for, so ``StreamStats`` holds
+per-batch stage times; ``sample_walks``/``sample_walks_donated`` draw one
+walk batch from the current window. They publish into the metrics
+registry (``obs/registry.py``); ``replay_device`` has ``probes=False``
+semantics (the reference's device probe vectors are not yet ported).
 """
 from __future__ import annotations
 
 import time
-from typing import Iterable, NamedTuple
+from dataclasses import dataclass, field
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import random as prng
@@ -24,10 +31,36 @@ from repro_torch.configs.base import (
     SchedulerConfig,
     WalkConfig,
 )
-from repro_torch.core.edge_store import EdgeBatch, stack_batches
-from repro_torch.core.walk_engine import WalkResult, generate_walks
+from repro_torch.core.edge_store import EdgeBatch, make_batch, stack_batches
+from repro_torch.core.walk_engine import (
+    WalkBuffers,
+    WalkResult,
+    alloc_walk_buffers,
+    generate_walks,
+    generate_walks_donated,
+)
 from repro_torch.core.window import WindowState, ingest, init_window
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs.registry import MetricsRegistry, count_drop, get_registry
+from repro_torch.obs.tracing import span
+
+
+@dataclass
+class StreamStats:
+    """Per-batch host-loop timings (``StreamingEngine.replay``)."""
+
+    ingest_s: List[float] = field(default_factory=list)
+    sample_s: List[float] = field(default_factory=list)
+    edges_active: List[int] = field(default_factory=list)
+    walks_valid: List[float] = field(default_factory=list)
+
+    @property
+    def cumulative_ingest(self):
+        return np.cumsum(self.ingest_s)
+
+    @property
+    def cumulative_sample(self):
+        return np.cumsum(self.sample_s)
 
 
 class ReplayStats(NamedTuple):
@@ -77,7 +110,8 @@ class StreamingEngine:
     """Tempest's end-to-end loop: ingest -> rebuild -> walk, on ``device``
     (CUDA unless the caller names another)."""
 
-    def __init__(self, cfg: EngineConfig, batch_capacity: int, device=None):
+    def __init__(self, cfg: EngineConfig, batch_capacity: int, device=None,
+                 registry: Optional[MetricsRegistry] = None):
         self.cfg = cfg
         self.batch_capacity = batch_capacity
         self.device = resolve_device(device)
@@ -85,12 +119,121 @@ class StreamingEngine:
             cfg.window.edge_capacity, cfg.window.node_capacity,
             int(cfg.window.duration), device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
+        self.stats = StreamStats()
+        self.registry = registry if registry is not None else get_registry()
+        # window-counter baselines: the state's counters are cumulative,
+        # the registry takes deltas
+        self._ingested_seen = 0
+        self._late_seen = 0
+        self._overflow_seen = 0
+        # walk-buffer pool for sample_walks_donated, keyed by (W, L)
+        self._walk_bufs: dict = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _publish_window(self) -> None:
+        """Window gauges and drop deltas from the synchronised state."""
+        reg = self.registry
+        num_edges = int(self.state.index.num_edges)
+        reg.set_gauge("window_edges_active", num_edges,
+                      help="edges resident in the temporal window")
+        reg.set_gauge("window_t_now", int(self.state.t_now),
+                      help="watermark timestamp of the window")
+        reg.set_gauge("window_occupancy",
+                      num_edges / self.cfg.window.edge_capacity,
+                      help="window fill fraction (edges_active / capacity)")
+        ingested = int(self.state.ingested)
+        late = int(self.state.late_drops)
+        overflow = int(self.state.overflow_drops)
+        reg.inc("stream_edges_ingested_total",
+                max(0, ingested - self._ingested_seen),
+                labels={"driver": "host"},
+                help="edges delivered into the window")
+        count_drop(reg, "ingest_late", max(0, late - self._late_seen))
+        count_drop(reg, "window_overflow",
+                   max(0, overflow - self._overflow_seen))
+        self._ingested_seen = ingested
+        self._late_seen = late
+        self._overflow_seen = overflow
 
     def ingest_batch(self, src, dst, ts) -> None:
-        batch = stack_batches([(src, dst, ts)], self.batch_capacity,
-                              device=self.device)
-        self.state = ingest(self.state, EdgeBatch(*(x[0] for x in batch)),
-                            self.cfg.window.node_capacity)
+        """Ingest one host batch and wait for it (a host-loop stage)."""
+        batch = make_batch(src, dst, ts, capacity=self.batch_capacity,
+                           device=self.device)
+        t0 = time.perf_counter()
+        with span("ingest_merge", self.registry):
+            self.state = ingest(self.state, batch,
+                                self.cfg.window.node_capacity)
+            self._sync()
+        self.stats.ingest_s.append(time.perf_counter() - t0)
+        self.stats.edges_active.append(int(self.state.index.num_edges))
+        self.registry.inc("stream_batches_total", 1,
+                          labels={"driver": "host"},
+                          help="batches replayed through the streaming "
+                               "drivers")
+        self._publish_window()
+
+    def sample_walks(self, wcfg: WalkConfig,
+                     collect_stats: bool = False) -> WalkResult:
+        """One walk batch from the current window, waited for."""
+        self.key, sub = prng.split(self.key)
+        t0 = time.perf_counter()
+        res = generate_walks(self.state.index, sub, wcfg, self.cfg.sampler,
+                             self.cfg.scheduler, collect_stats=collect_stats)
+        self._finish_sample(res, t0, path="host")
+        return res
+
+    def sample_walks_donated(self, wcfg: WalkConfig) -> WalkResult:
+        """Like ``sample_walks``, but the walks are written into a
+        per-shape buffer pool (DESIGN.md §10): the previous result returned
+        for the same (num_walks, max_length) is overwritten by this call,
+        so copy it first if it must outlive the next round."""
+        shape_key = (wcfg.num_walks, wcfg.max_length)
+        bufs = self._walk_bufs.pop(shape_key, None)
+        if bufs is None:
+            bufs = alloc_walk_buffers(wcfg, device=self.device)
+        self.key, sub = prng.split(self.key)
+        t0 = time.perf_counter()
+        res = generate_walks_donated(self.state.index, sub, bufs, wcfg,
+                                     self.cfg.sampler, self.cfg.scheduler)
+        self._finish_sample(res, t0, path="donated")
+        self._walk_bufs[shape_key] = WalkBuffers(res.nodes, res.times)
+        return res
+
+    def _finish_sample(self, res: WalkResult, t0: float,
+                       path: str = "host") -> float:
+        """Shared tail of the sample_walks entry points: wait, record wall
+        time and the valid-walk fraction, publish into the registry."""
+        lengths = res.lengths.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+        self.stats.sample_s.append(elapsed)
+        frac = float(np.mean(lengths >= 2)) if lengths.size else 0.0
+        self.stats.walks_valid.append(frac)
+        reg = self.registry
+        reg.inc("walks_dispatched_total", int(lengths.size),
+                labels={"path": path},
+                help="walk slots dispatched, by sampling path")
+        reg.inc("walks_emitted_total", int(np.sum(lengths >= 2)),
+                labels={"driver": "host"},
+                help="walks with at least one hop")
+        reg.inc("walk_hops_total",
+                int(np.sum(np.maximum(lengths.astype(np.int64) - 1, 0))),
+                labels={"source": "replay"}, help="hop cells executed")
+        reg.observe("walk_sample_seconds", elapsed, labels={"path": path},
+                    help="wall time per sample_walks dispatch")
+        return elapsed
+
+    def replay(self, batches: Iterable, wcfg: WalkConfig,
+               on_batch: Optional[Callable] = None) -> StreamStats:
+        """The host loop: per-batch ingest + walks, each waited for."""
+        for bs, bd, bt in batches:
+            self.ingest_batch(bs, bd, bt)
+            res = self.sample_walks(wcfg)
+            if on_batch is not None:
+                on_batch(self, res)
+        return self.stats
 
     def replay_device(self, batches: Iterable, wcfg: WalkConfig,
                       return_walks: bool = False):
@@ -100,8 +243,7 @@ class StreamingEngine:
         stacked = stack_batches(batches, self.batch_capacity,
                                 device=self.device)
         self.key, sub = prng.split(self.key)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         t0 = time.perf_counter()
         self.state, stats, walks = replay_scan(
             self.state, stacked, sub, self.cfg.window.node_capacity, wcfg,

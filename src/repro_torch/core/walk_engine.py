@@ -21,9 +21,22 @@ lane→walk map, with the reference's key schedule: ``split`` into
 (start, walk) keys, ``fold_in(walk_key, step)`` per hop and
 ``uniform(hop_key, (W,))[lane]``. Walks are therefore byte-identical to
 the reference's for the same key, on every path of the reference.
+
+**Per-lane batches** (``LaneParams`` / ``generate_walk_lanes``, DESIGN.md
+§11) carry bias, maximum length and RNG seed per lane, so the serving
+coalescer can pack many queries into one fixed-shape batch. Lane w draws
+from ``fold_in(fold_in(fold_in(key, rid[w]), wid[w]), tag)`` with tag 0
+for the start draw and tag s+1 for hop s, so a lane's walk does not
+depend on the batch it rides in. They run on ``fullwalk``, ``grouped``
+and ``fused``; the fused kernel dispatches the bias code per lane.
+
+``generate_walks(..., buffers=)`` and ``generate_walks_donated`` write the
+walks into the caller's ``WalkBuffers`` in place (every cell is
+overwritten) and return them as the result's ``nodes``/``times``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
@@ -35,7 +48,9 @@ from repro_torch.core.samplers import (
     BIAS_CODES,
     bias_code,
     pick_in_neighborhood,
+    pick_in_neighborhood_lanes,
     pick_start_edges,
+    pick_start_edges_lanes,
 )
 from repro_torch.core.temporal_index import (
     TemporalIndex,
@@ -45,17 +60,37 @@ from repro_torch.core.temporal_index import (
 )
 from repro_torch.kernels.fused_step import fused_walk_step
 from repro_torch.kernels.ops import walk_step
+from repro_torch.kernels.runtime import resolve_device
 
 NODE_PAD = -1          # sentinel in emitted walks beyond walk length
+
+
+@dataclass(frozen=True)
+class LaneFeatures:
+    """Static summary of what a coalesced lane batch needs from the
+    engine: ``table`` — lanes with bias code "table" (alias tables);
+    ``second_order`` — per-lane node2vec (p, q) with a lane ≠ 1."""
+
+    table: bool = False
+    second_order: bool = False
+
 
 _CAP = "unsupported sampler capability: "
 
 
-def check_capabilities(scfg: SamplerConfig, path: str) -> None:
-    """Validate a (sampler config, path) combination for the port, with the
-    reference's refusal messages (core/walk_engine.py::check_capabilities).
-    Raises ``ValueError`` when refused, ``NotImplementedError`` for what
-    the port does not run yet: alias tables and node2vec."""
+def check_capabilities(scfg: SamplerConfig, path: str,
+                       lanes: Optional[LaneFeatures] = None, *,
+                       sharded: bool = False,
+                       have_tables: bool = True) -> None:
+    """Validate a (sampler config, path, lane features) combination.
+
+    Refuses with the reference's ``ValueError`` and message wherever
+    core/walk_engine.py::check_capabilities refuses. What the reference
+    runs and the port does not run yet raises ``NotImplementedError``:
+    alias tables (config or lane bias "table"), node2vec second-order
+    bias (config or lanes), and sharded walks. The port builds no alias
+    tables yet, so by default a table request is judged as if tables
+    were given (``have_tables=True``) and refused as not yet ported."""
     if scfg.bias not in BIAS_CODES:
         raise ValueError(
             _CAP + f"unknown bias {scfg.bias!r} "
@@ -66,18 +101,44 @@ def check_capabilities(scfg: SamplerConfig, path: str) -> None:
             "start draws use the closed forms 'uniform'|'linear'|"
             "'exponential' (alias tables cover neighborhood regions, not "
             "the timestamp view)")
+    use_n2v = scfg.node2vec_p != 1.0 or scfg.node2vec_q != 1.0
+
     if scfg.bias == "table":
         if scfg.mode != "index":
             raise ValueError(
                 _CAP + "bias='table' requires SamplerConfig.mode='index' "
                 f"(the alias draw replaces the mode dispatch; got "
                 f"mode={scfg.mode!r})")
+        if sharded:
+            raise ValueError(
+                _CAP + "sharded streaming walks do not support bias="
+                "'table' (per-shard alias tables cover resident regions "
+                "only; a migrating walk's draw would need its owner's "
+                "table)")
+        if not have_tables:
+            raise ValueError(
+                _CAP + "bias='table' requires alias tables: build the "
+                "window with a TableSpec (init_window(..., table=spec) / "
+                "ingest(..., table=spec)) and pass state.tables into the "
+                "walk entry point")
         if path in ("tiled", "fused"):
             raise ValueError(
                 _CAP + f"path={path!r} does not support bias='table' (the "
                 "Pallas kernels dispatch the closed-form inverse CDFs "
                 "only); use 'fullwalk'|'grouped'")
-    if scfg.node2vec_p != 1.0 or scfg.node2vec_q != 1.0:
+
+    if use_n2v:
+        if sharded:
+            raise ValueError(
+                _CAP + "sharded streaming walks do not support node2vec "
+                "second-order bias (the β probe needs the previous node's "
+                "adjacency, which lives on a different shard)")
+        if lanes is not None:
+            raise ValueError(
+                _CAP + "per-lane batches do not support config-level "
+                "node2vec second-order bias; second-order lanes carry "
+                "their own (n2v_p, n2v_q) arrays (set node2vec_p="
+                "node2vec_q=1.0)")
         if path == "fused":
             raise ValueError(
                 _CAP + "path='fused' does not support node2vec "
@@ -88,10 +149,57 @@ def check_capabilities(scfg: SamplerConfig, path: str) -> None:
                 _CAP + "path='tiled' does not support node2vec "
                 "second-order bias (the walk-step kernel draws first-"
                 "order only); use 'fullwalk'|'grouped'")
-    if scfg.bias == "table":
+
+    if lanes is not None:
+        if scfg.mode != "index":
+            raise ValueError(
+                _CAP + "per-lane batches require SamplerConfig.mode="
+                "'index': the per-lane dispatch selects over the closed-"
+                f"form inverse CDFs (got mode={scfg.mode!r})")
+        if path == "tiled":
+            raise ValueError(
+                _CAP + "per-lane batches support paths 'fullwalk'|"
+                "'grouped'|'fused'; the tiled Pallas kernel compiles a "
+                "single bias per dispatch (the fused kernel dispatches "
+                "per-lane bias codes)")
+        if lanes.table:
+            if sharded:
+                raise ValueError(
+                    _CAP + "sharded lane serving does not support bias "
+                    "code 'table' (per-shard alias tables cover resident "
+                    "regions only; a migrating lane's draw would need its "
+                    "owner's table)")
+            if not have_tables:
+                raise ValueError(
+                    _CAP + "lane bias code 'table' requires alias tables: "
+                    "ingest with a TableSpec and pass state.tables into "
+                    "generate_walk_lanes")
+            if path == "fused":
+                raise ValueError(
+                    _CAP + "path='fused' does not serve lane bias code "
+                    "'table' (the fused kernel dispatches the closed-form "
+                    "codes only); use 'fullwalk'|'grouped'")
+        if lanes.second_order:
+            if sharded:
+                raise ValueError(
+                    _CAP + "sharded lane serving does not support "
+                    "node2vec second-order lanes (the β probe needs the "
+                    "previous node's adjacency, which lives on a "
+                    "different shard)")
+            if path == "fused":
+                raise ValueError(
+                    _CAP + "path='fused' does not support node2vec "
+                    "second-order lanes (the rejection loop re-draws "
+                    "outside the kernel); use 'fullwalk'|'grouped'")
+
+    if sharded:
+        raise NotImplementedError(
+            "sharded walks and sharded serving are not yet ported to "
+            "PyTorch")
+    if scfg.bias == "table" or (lanes is not None and lanes.table):
         raise NotImplementedError(
             "bias='table' (alias tables) is not yet ported to PyTorch")
-    if scfg.node2vec_p != 1.0 or scfg.node2vec_q != 1.0:
+    if use_n2v or (lanes is not None and lanes.second_order):
         raise NotImplementedError(
             "node2vec second-order bias is not yet ported to PyTorch")
 
@@ -101,6 +209,56 @@ class WalkResult(NamedTuple):
     times: torch.Tensor     # int32[W, L+1]
     lengths: torch.Tensor   # int32[W] number of nodes recorded
     stats: Optional[torch.Tensor] = None   # float32[hops, NUM_STATS]
+
+
+class WalkBuffers(NamedTuple):
+    """Reusable walk output buffers: the two int32[W, L+1] arrays of a
+    ``WalkResult``. The walk loop overwrites every cell, so their contents
+    on entry are dead."""
+
+    nodes: torch.Tensor
+    times: torch.Tensor
+
+
+def alloc_walk_buffers(wcfg: WalkConfig, device=None) -> WalkBuffers:
+    """Walk buffers for ``generate_walks_donated`` round-trips, on CUDA
+    unless ``device`` names another."""
+    shape = (wcfg.num_walks, wcfg.max_length + 1)
+    dev = resolve_device(device)
+    return WalkBuffers(
+        *(torch.full(shape, NODE_PAD, dtype=torch.int32, device=dev)
+          for _ in range(2)))
+
+
+class LaneParams(NamedTuple):
+    """Per-lane sampler parameters of a coalesced batch (DESIGN.md §11),
+    [W] tensors in walk order on the index's device. ``rid``/``wid`` drive
+    the lane's RNG stream (see the module docstring); ``active`` marks
+    real lanes against bucket padding. ``n2v_p``/``n2v_q`` are the
+    second-order node2vec parameters (1.0 disables them), which the port
+    packs but does not run yet."""
+
+    start_node: torch.Tensor   # int32[W] start node (start_mode="nodes")
+    bias: torch.Tensor         # int32[W] hop-bias code (samplers.BIAS_CODES)
+    start_bias: torch.Tensor   # int32[W] start-edge bias code ("edges")
+    max_len: torch.Tensor      # int32[W] per-lane hop budget
+    rid: torch.Tensor          # int32[W] request seed folded into the RNG
+    wid: torch.Tensor          # int32[W] walk index within the request
+    active: torch.Tensor       # bool[W] real lane vs bucket padding
+    n2v_p: Optional[torch.Tensor] = None
+    n2v_q: Optional[torch.Tensor] = None
+
+
+def _lane_keys(key, lanes: LaneParams) -> torch.Tensor:
+    """Per-lane keys, int64[W, 2]: the base key folded by request seed,
+    then by walk id."""
+    return prng.fold_in_lanes(prng.fold_in_lanes(key, lanes.rid), lanes.wid)
+
+
+def _lane_uniform(lane_keys: torch.Tensor, tag) -> torch.Tensor:
+    """One U[0, 1) draw per lane from the step-``tag`` substream: float32
+    [W] for an int ``tag``, [T, W] for an integer tensor of tags [T, 1]."""
+    return prng.uniform_lanes(prng.fold_in_lanes(lane_keys, tag))
 
 
 class _Carry(NamedTuple):
@@ -117,33 +275,57 @@ class _Carry(NamedTuple):
 
 
 def start_walks(index: TemporalIndex, wcfg: WalkConfig, scfg: SamplerConfig,
-                key) -> _Carry:
-    """Walk starts for start modes ``nodes``, ``edges`` and ``all_nodes``."""
+                key, buffers: Optional[WalkBuffers] = None,
+                lanes: Optional[LaneParams] = None,
+                lane_keys: Optional[torch.Tensor] = None) -> _Carry:
+    """Walk starts for start modes ``nodes``, ``edges`` and ``all_nodes``;
+    with ``lanes``, per-lane starts in modes ``nodes`` and ``edges``."""
     W, L = wcfg.num_walks, wcfg.max_length
     dev = index.ns_ts.device
     i32 = dict(dtype=torch.int32, device=dev)
-    nodes = torch.full((W, L + 1), NODE_PAD, **i32)
-    times = torch.full((W, L + 1), NODE_PAD, **i32)
+    if buffers is None:
+        nodes = torch.full((W, L + 1), NODE_PAD, **i32)
+        times = torch.full((W, L + 1), NODE_PAD, **i32)
+    else:
+        nodes, times = buffers
     lane = torch.arange(W, **i32)
     nc = index.node_capacity
     t_floor = torch.where(index.num_edges > 0, index.store.ts[0] - 1, 0)
     no_prev = torch.full((W,), -1, **i32)
 
+    if lanes is not None and wcfg.start_mode not in ("nodes", "edges"):
+        raise ValueError(
+            f"lane batches support start_mode 'nodes'|'edges', "
+            f"got {wcfg.start_mode!r}")
     if wcfg.start_mode == "edges":
-        u = prng.uniform(key, (W,), dev)
-        e = pick_start_edges(index, scfg, u).clamp(0, index.edge_capacity - 1)
-        e = e.long()
+        if lanes is None:
+            u = prng.uniform(key, (W,), dev)
+            e = pick_start_edges(index, scfg, u)
+            alive = (index.num_edges > 0).expand(W)
+        else:
+            # per-lane biased start edges; padding lanes stay dead
+            e = pick_start_edges_lanes(index, lanes.start_bias,
+                                       _lane_uniform(lane_keys, 0))
+            alive = lanes.active & (index.num_edges > 0)
+        e = e.clamp(0, index.edge_capacity - 1).long()
         src = index.store.src[e]
         cur = index.store.dst[e]
         cur_time = index.store.ts[e]
-        alive = (index.num_edges > 0).expand(W)
         nodes[:, 0] = torch.where(alive, src, NODE_PAD)
         times[:, 0] = torch.where(alive, cur_time, NODE_PAD)
         nodes[:, 1] = torch.where(alive, cur, NODE_PAD)
         times[:, 1] = torch.where(alive, cur_time, NODE_PAD)
         return _Carry(cur, cur_time, src, alive, lane, nodes, times,
                       torch.where(alive, 2, 0).to(torch.int32))
-    if wcfg.start_mode == "all_nodes":
+    if lanes is not None:
+        # explicit per-lane start nodes; a start node out of range or
+        # without in-window edges, and a padding lane, yield an empty walk
+        cur = lanes.start_node.clamp(0, nc - 1)
+        cl = cur.long()
+        alive = (lanes.active
+                 & ((index.node_starts[cl + 1] - index.node_starts[cl]) > 0)
+                 & (lanes.start_node >= 0) & (lanes.start_node < nc))
+    elif wcfg.start_mode == "all_nodes":
         cur = torch.arange(W, **i32) % nc
         cl = cur.long()
         alive = (index.node_starts[cl + 1] - index.node_starts[cl]) > 0
@@ -259,44 +441,73 @@ def _draws(hop_key, order: torch.Tensor) -> torch.Tensor:
         order.long()]
 
 
+def _draw_pick(index, scfg, hop_key, c, b, s_node, order, lane_bias=None,
+               lane_u=None):
+    """Positions k ∈ [c, b) for lanes in ``order`` (lane -> walk id, None
+    for walk order): the config bias over the hop's uniforms, or, with
+    ``lane_bias``/``lane_u`` (walk-order arrays), each lane's own code and
+    draw."""
+    if lane_u is None:
+        u = (prng.uniform(hop_key, (s_node.shape[0],), s_node.device)
+             if order is None else _draws(hop_key, order))
+        return pick_in_neighborhood(index, scfg, c, b, u, s_node)
+    if order is not None:
+        o = order.long()
+        lane_bias, lane_u = lane_bias[o], lane_u[o]
+    return pick_in_neighborhood_lanes(index, lane_bias, c, b, lane_u)
+
+
+def _limit(has_next, lane_limit, order=None):
+    """``has_next`` within each lane's own budget (walk-order
+    ``lane_limit`` seen through ``order``)."""
+    if lane_limit is None:
+        return has_next
+    return has_next & (lane_limit if order is None
+                       else lane_limit[order.long()])
+
+
 def _gather(index: TemporalIndex, k: torch.Tensor):
     k = k.clamp(0, index.edge_capacity - 1).long()
     return index.ns_dst[k], index.ns_ts[k]
 
 
 def _hop_fullwalk(index, scfg, sched_cfg, carry: _Carry, step: int,
-                  hop_key) -> _Carry:
+                  hop_key, lane_bias=None, lane_u=None,
+                  lane_limit=None) -> _Carry:
     """Every walk advances on its own, in walk order."""
     a, b = node_range(index, carry.cur_node)
     c = temporal_cutoff(index, a, b, carry.cur_time)
-    u = prng.uniform(hop_key, (carry.cur_node.shape[0],),
-                     carry.cur_node.device)
-    k = pick_in_neighborhood(index, scfg, c, b, u, carry.cur_node)
+    k = _draw_pick(index, scfg, hop_key, c, b, carry.cur_node, None,
+                   lane_bias, lane_u)
     return _advance(carry, step, *_gather(index, k),
-                    carry.alive & (b - c > 0))
+                    _limit(carry.alive & (b - c > 0), lane_limit))
 
 
 def _hop_grouped(index, scfg, sched_cfg, carry: _Carry, step: int,
-                 hop_key) -> _Carry:
+                 hop_key, lane_bias=None, lane_u=None,
+                 lane_limit=None) -> _Carry:
     """Fresh stable sort by (node, time) + inverse, shared cutoffs."""
     perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
     b, c = _segment_cutoff(index, s_node, s_time)
-    k = pick_in_neighborhood(index, scfg, c, b, _draws(hop_key, perm), s_node)
+    k = _draw_pick(index, scfg, hop_key, c, b, s_node, perm, lane_bias,
+                   lane_u)
     nn, nt = _gather(index, k)
-    return _advance(carry, step, *_unsort(perm, nn, nt,
-                                          s_alive & (b - c > 0)))
+    return _advance(carry, step, *_unsort(
+        perm, nn, nt, _limit(s_alive & (b - c > 0), lane_limit, perm)))
 
 
 def _hop_grouped_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
-                        hop_key) -> _Carry:
+                        hop_key, lane_bias=None, lane_u=None,
+                        lane_limit=None) -> _Carry:
     """Carried bucket regroup, shared cutoffs (the reference's default)."""
     lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
         index, sched_cfg, carry)
     b, c = _segment_cutoff(index, s_node, s_time)
-    k = pick_in_neighborhood(index, scfg, c, b, _draws(hop_key, lane), s_node)
+    k = _draw_pick(index, scfg, hop_key, c, b, s_node, lane, lane_bias,
+                   lane_u)
     nn, nt = _gather(index, k)
     return _advance_lanes(carry, lane, step, s_node, s_time, s_prev, nn, nt,
-                          s_alive & (b - c > 0))
+                          _limit(s_alive & (b - c > 0), lane_limit, lane))
 
 
 def _hop_tiled(index, scfg, sched_cfg, carry: _Carry, step: int,
@@ -321,34 +532,43 @@ def _hop_tiled_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
                           s_alive & (n > 0))
 
 
-def _fused_codes(scfg: SamplerConfig, hop_key, order: torch.Tensor):
-    """Per-lane (bias code, uniform) in lane order for the fused kernels."""
+def _fused_codes(scfg: SamplerConfig, hop_key, order: torch.Tensor,
+                 lane_bias=None, lane_u=None):
+    """Per-lane (bias code, uniform) in lane order for the fused kernel:
+    the config bias and the hop's draws, or the lanes' own."""
+    if lane_u is not None:
+        o = order.long()
+        return lane_bias[o], lane_u[o]
     code = torch.full((order.shape[0],), bias_code(scfg.bias),
                       dtype=torch.int32, device=order.device)
     return code, _draws(hop_key, order)
 
 
 def _hop_fused(index, scfg, sched_cfg, carry: _Carry, step: int,
-               hop_key) -> _Carry:
-    """Lexsort layout through the fused kernels."""
+               hop_key, lane_bias=None, lane_u=None,
+               lane_limit=None) -> _Carry:
+    """Lexsort layout through the fused kernel."""
     perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
-    code, u = _fused_codes(scfg, hop_key, perm)
+    code, u = _fused_codes(scfg, hop_key, perm, lane_bias, lane_u)
     out = fused_walk_step(index, s_node, s_time, code, u, scfg.mode,
                           sched_cfg)
-    return _advance(carry, step, *_unsort(perm, out.dst, out.ts,
-                                          s_alive & (out.n > 0)))
+    return _advance(carry, step, *_unsort(
+        perm, out.dst, out.ts, _limit(s_alive & (out.n > 0), lane_limit,
+                                      perm)))
 
 
 def _hop_fused_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
-                      hop_key) -> _Carry:
-    """Bucket layout through the fused kernels (DESIGN.md §14)."""
+                      hop_key, lane_bias=None, lane_u=None,
+                      lane_limit=None) -> _Carry:
+    """Bucket layout through the fused kernel (DESIGN.md §14)."""
     lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
         index, sched_cfg, carry)
-    code, u = _fused_codes(scfg, hop_key, lane)
+    code, u = _fused_codes(scfg, hop_key, lane, lane_bias, lane_u)
     out = fused_walk_step(index, s_node, s_time, code, u, scfg.mode,
                           sched_cfg)
     return _advance_lanes(carry, lane, step, s_node, s_time, s_prev,
-                          out.dst, out.ts, s_alive & (out.n > 0))
+                          out.dst, out.ts,
+                          _limit(s_alive & (out.n > 0), lane_limit, lane))
 
 
 # (path, bucket regroup) -> hop; fullwalk has no regroup
@@ -364,14 +584,41 @@ HOPS = {
 }
 
 
-def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
-                   scfg: SamplerConfig, sched_cfg: SchedulerConfig,
-                   collect_stats: bool = False) -> WalkResult:
-    """Generate ``wcfg.num_walks`` temporal walks of ≤ ``max_length`` hops
-    on the index's device. ``key`` is a ``repro_torch.random`` key. With
-    ``collect_stats``, ``WalkResult.stats`` holds ``dispatch_stats`` of
-    every hop, float32[hops, NUM_STATS]."""
-    check_capabilities(scfg, sched_cfg.path)
+def _check_buffers(buffers: WalkBuffers, wcfg: WalkConfig,
+                   device: torch.device) -> None:
+    shape = (wcfg.num_walks, wcfg.max_length + 1)
+    for name, t in zip(WalkBuffers._fields, buffers):
+        if (tuple(t.shape) != shape or t.dtype != torch.int32
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"buffers.{name} must be contiguous int32{list(shape)} on "
+                f"{device}, got {t.dtype}{list(t.shape)} on {t.device}")
+
+
+def _check_lane_support(wcfg: WalkConfig, scfg: SamplerConfig,
+                        sched_cfg: SchedulerConfig, lanes: LaneParams,
+                        second_order: bool = False) -> None:
+    """Validation of a per-lane batch (DESIGN.md §11): shapes here,
+    everything capability-shaped through ``check_capabilities``."""
+    check_capabilities(scfg, sched_cfg.path,
+                       LaneFeatures(second_order=second_order))
+    if lanes.start_node.shape[0] != wcfg.num_walks:
+        raise ValueError(
+            f"lane arrays have {lanes.start_node.shape[0]} lanes but "
+            f"wcfg.num_walks={wcfg.num_walks}")
+
+
+def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
+                         scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                         collect_stats: bool = False,
+                         buffers: Optional[WalkBuffers] = None,
+                         lanes: Optional[LaneParams] = None,
+                         second_order: bool = False) -> WalkResult:
+    """Shared body of every walk entry point."""
+    if lanes is not None:
+        _check_lane_support(wcfg, scfg, sched_cfg, lanes, second_order)
+    else:
+        check_capabilities(scfg, sched_cfg.path)
     if sched_cfg.regroup not in ("bucket", "lexsort"):
         raise ValueError(f"unknown regroup {sched_cfg.regroup!r}")
     try:
@@ -379,17 +626,40 @@ def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
     except KeyError:
         raise ValueError(
             f"unknown scheduler path {sched_cfg.path!r}") from None
-    start_key, walk_key = prng.split(key)
-    carry = start_walks(index, wcfg, scfg, start_key)
+    if buffers is not None:
+        _check_buffers(buffers, wcfg, index.ns_ts.device)
+    if lanes is not None:
+        # one base key; lane streams are folds of it, never a split, so a
+        # lane's draws do not depend on the batch it rides in
+        lane_keys = _lane_keys(key, lanes)
+        start_key = walk_key = key
+    else:
+        lane_keys = None
+        start_key, walk_key = prng.split(key)
+    carry = start_walks(index, wcfg, scfg, start_key, buffers=buffers,
+                        lanes=lanes, lane_keys=lane_keys)
     edges = wcfg.start_mode == "edges"
     hops = wcfg.max_length - 1 if edges else wcfg.max_length
+    if lanes is not None and hops > 0:
+        # every hop's lane draws at once: tag s+1 for hop s (tag 0 was the
+        # start draw), one pass over [hops, W] instead of one per hop
+        lane_us = _lane_uniform(lane_keys, torch.arange(
+            1, hops + 1, device=lane_keys.device)[:, None])
     stats = []
     for step in range(hops):
+        write_pos = step + int(edges)
         if collect_stats:
             stats.append(sched.dispatch_stats(index, carry.cur_node,
                                               carry.alive, sched_cfg))
-        carry = hop(index, scfg, sched_cfg, carry, step + int(edges),
-                    prng.fold_in(walk_key, step))
+        if lanes is None:
+            carry = hop(index, scfg, sched_cfg, carry, write_pos,
+                        prng.fold_in(walk_key, step))
+        else:
+            # column write_pos+1 is written only within the lane's own
+            # max_len
+            carry = hop(index, scfg, sched_cfg, carry, write_pos, None,
+                        lane_bias=lanes.bias, lane_u=lane_us[step],
+                        lane_limit=(write_pos + 1) <= lanes.max_len)
     if collect_stats:
         stats = torch.stack(stats) if stats else torch.zeros(
             (0, sched.NUM_STATS), dtype=torch.float32,
@@ -397,3 +667,39 @@ def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
     return WalkResult(nodes=carry.nodes, times=carry.times,
                       lengths=carry.lengths,
                       stats=stats if collect_stats else None)
+
+
+def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
+                   scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                   collect_stats: bool = False,
+                   buffers: Optional[WalkBuffers] = None) -> WalkResult:
+    """Generate ``wcfg.num_walks`` temporal walks of ≤ ``max_length`` hops
+    on the index's device. ``key`` is a ``repro_torch.random`` key. With
+    ``collect_stats``, ``WalkResult.stats`` holds ``dispatch_stats`` of
+    every hop, float32[hops, NUM_STATS]. With ``buffers``, the walks are
+    written into them and they are the result's ``nodes``/``times``."""
+    return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
+                                collect_stats=collect_stats,
+                                buffers=buffers)
+
+
+def generate_walks_donated(index: TemporalIndex, key, buffers: WalkBuffers,
+                           wcfg: WalkConfig, scfg: SamplerConfig,
+                           sched_cfg: SchedulerConfig) -> WalkResult:
+    """Steady-state form of ``generate_walks`` (DESIGN.md §10): the walks
+    of this round are written into the previous round's ``buffers``,
+    which the caller gives up."""
+    return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
+                                buffers=buffers)
+
+
+def generate_walk_lanes(index: TemporalIndex, key, lanes: LaneParams,
+                        wcfg: WalkConfig, scfg: SamplerConfig,
+                        sched_cfg: SchedulerConfig,
+                        second_order: bool = False) -> WalkResult:
+    """A coalesced heterogeneous batch (DESIGN.md §11): one fixed-shape
+    run of ``wcfg.num_walks`` lanes with bias, maximum length and RNG
+    seed per lane, on paths ``fullwalk``, ``grouped`` and ``fused``.
+    ``second_order`` (node2vec lanes) is not yet ported."""
+    return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
+                                lanes=lanes, second_order=second_order)

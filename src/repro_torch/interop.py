@@ -1,10 +1,11 @@
 """State carried across from the reference into the port's types.
 
-The functions take the reference's ``EdgeStore``, ``TemporalIndex`` and
-``WindowState`` as NamedTuples or dicts whose fields are numpy arrays (or
-anything ``numpy.asarray`` accepts), and a key as two uint32 words. Tests
-use them to feed the reference's own index — its ``pexp``/``plin`` among
-it — into the port, so weight-mode walks can be compared bit for bit.
+The functions take the reference's ``EdgeStore``, ``TemporalIndex``,
+``WindowState`` and ``LaneParams`` as NamedTuples or dicts whose fields
+are numpy arrays (or anything ``numpy.asarray`` accepts), and a key as two
+uint32 words. Tests use them to feed the reference's own index — its
+``pexp``/``plin`` among it — into the port, so weight-mode walks can be
+compared bit for bit, and to run one packed lane batch in both packages.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core.edge_store import EdgeStore
 from repro_torch.core.temporal_index import TemporalIndex
+from repro_torch.core.walk_engine import LaneParams
 from repro_torch.core.window import WindowState
 from repro_torch.kernels.runtime import resolve_device
 
@@ -57,3 +59,20 @@ def window_from_ref(state, device=None) -> WindowState:
     return WindowState(index=index_from_ref(_get(state, "index"), device),
                        **{f: _tensor(_get(state, f), np.int32, device)
                           for f in _COUNTERS})
+
+
+def lanes_from_ref(lanes, device=None) -> LaneParams:
+    """The port's ``LaneParams`` from the reference's (same fields)."""
+    device = resolve_device(device)
+    fields = {}
+    for f in LaneParams._fields:
+        x = _get(lanes, f)
+        if x is None:
+            fields[f] = None
+        elif f == "active":
+            fields[f] = _tensor(x, np.bool_, device)
+        elif f in ("n2v_p", "n2v_q"):
+            fields[f] = _tensor(x, np.float32, device)
+        else:
+            fields[f] = _tensor(x, np.int32, device)
+    return LaneParams(**fields)

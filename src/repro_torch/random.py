@@ -16,6 +16,12 @@ A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words
 host so no draw waits for the device). All uint32 arithmetic is done in
 int64 with masks, so the same ``_threefry2x32`` body runs on Python ints
 and on int64 tensors of any device.
+
+Per-lane batches carry one key per lane: an int64 tensor ``[W, 2]`` on
+the lanes' device. ``fold_in_lanes`` and ``uniform_lanes`` are
+``jax.vmap(jax.random.fold_in)`` and ``jax.vmap(lambda k:
+jax.random.uniform(k, ()))`` over such a tensor, or over a ``[T, W, 2]``
+stack of them.
 """
 from __future__ import annotations
 
@@ -88,6 +94,34 @@ def fold_in(key: KeyLike, data: int) -> torch.Tensor:
     return _key(y0, y1)
 
 
+def fold_in_lanes(keys: KeyLike, data) -> torch.Tensor:
+    """Keys folded with tags (``jax.vmap(jax.random.fold_in)``): ``keys``
+    is one key or int64 ``[..., 2]``, ``data`` a Python int or an integer
+    tensor that broadcasts against the keys' leading shape (int32 values
+    are taken as uint32, as ``fold_in`` does). Returns int64 ``[..., 2]``
+    on the device of the tensors given."""
+    if isinstance(keys, torch.Tensor) and keys.dim() > 1:
+        k1, k2 = keys[..., 0], keys[..., 1]
+    else:
+        k1, k2 = key_words(keys)
+    data = (data.to(torch.int64) if isinstance(data, torch.Tensor)
+            else int(data)) & _MASK
+    y0, y1 = _threefry2x32(k1, k2, 0, data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_lanes(keys: torch.Tensor) -> torch.Tensor:
+    """One float32 U[0, 1) per key of int64 ``[..., 2]`` (``uniform(k, ())``
+    of each), on the keys' device."""
+    y0, y1 = _threefry2x32(keys[..., 0], keys[..., 1], 0, 0)
+    return _to_unit_float(y0 ^ y1)
+
+
+def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
 def uniform(key: KeyLike, shape: Sequence[int],
             device: torch.device | str | None = None) -> torch.Tensor:
     """float32 U[0, 1) of ``shape`` (``jax.random.uniform``), on CUDA unless
@@ -96,6 +130,4 @@ def uniform(key: KeyLike, shape: Sequence[int],
     idx = torch.arange(math.prod(shape), dtype=torch.int64,
                        device=resolve_device(device))
     y0, y1 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK)
-    bits = (y0 ^ y1).reshape(tuple(shape))
-    f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    return _to_unit_float((y0 ^ y1).reshape(tuple(shape)))

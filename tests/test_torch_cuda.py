@@ -268,3 +268,64 @@ def test_small_replay_card_equals_cpu(card):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(out[0][1][:3], out[1][1][:3]):
         np.testing.assert_array_equal(a, b)
+
+
+def _served(device, queries, max_inflight):
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.serve import WalkService
+    g = powerlaw_temporal_graph(512, 1 << 14, seed=4, t_max=100_000)
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 13,
+                            node_capacity=512),
+        sampler=SamplerConfig(mode="index"),
+        scheduler=SchedulerConfig(path="fused", tile_walks=64,
+                                  tile_edges=256))
+    svc = WalkService(cfg, ServeConfig(max_inflight=max_inflight),
+                      batch_capacity=1 << 13, device=device)
+    for b in chronological_batches(g, 3):
+        svc.ingest(*b)
+    hops = []
+    launch = svc._launch_lanes
+
+    def counted(params, wcfg, pin, **kw):
+        # a batch runs one hop per column after its start: L in nodes
+        # mode, L - 1 in edges mode, with L its length bucket
+        hops.append(wcfg.max_length - (wcfg.start_mode == "edges"))
+        return launch(params, wcfg, pin, **kw)
+    svc._launch_lanes = counted
+    runtime.reset_launches()
+    tickets = [svc.submit(q, strict=True) for q in queries]
+    while svc.pending_count or svc.inflight_count:
+        svc.tick()
+    return ([svc.poll(t) for t in tickets], sum(hops),
+            dict(runtime.LAUNCHES))
+
+
+def test_served_batches_card_equal_cpu(card):
+    """The same traffic served on the card (fused_hop, async ring) and on
+    the CPU (plain version): equal results per ticket; the card launched
+    fused_hop once per hop of every served batch and nothing else."""
+    from repro_torch.serve import WalkQuery
+    rng = np.random.default_rng(5)
+    biases = ("uniform", "linear", "exponential")
+    queries = []
+    for i in range(24):
+        if i % 3 == 2:
+            queries.append(WalkQuery(
+                num_walks=int(rng.integers(16, 100)), start_mode="edges",
+                bias=biases[i % 3], start_bias=biases[(i + 1) % 3],
+                max_length=int(rng.integers(3, 40)), seed=7 * i - 50))
+        else:
+            queries.append(WalkQuery(
+                start_nodes=tuple(int(v) for v in rng.integers(
+                    -2, 520, int(rng.integers(1, 64)))),
+                bias=biases[i % 3], max_length=int(rng.integers(3, 40)),
+                seed=1000 + i))
+    got, hops, launches = _served(card, queries, max_inflight=4)
+    want, _, _ = _served("cpu", queries, max_inflight=1)
+    for g, w in zip(got, want):
+        for f in ("nodes", "times", "lengths", "snapshot_version"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+    assert hops > 80
+    assert launches == dict(fused_hop=hops, weight_prefix=0,
+                            walk_step_tiled=0)

@@ -24,14 +24,17 @@ import torch
 
 from repro_torch import interop
 from repro_torch import random as prng
-from repro_torch.configs.base import EngineConfig, SchedulerConfig
+from repro_torch.configs.base import (EngineConfig, SchedulerConfig,
+                                      WalkConfig)
 from repro_torch.core import edge_store as es
 from repro_torch.core.streaming import StreamingEngine
 from repro_torch.core.temporal_index import build_index
+from repro_torch.core.walk_engine import alloc_walk_buffers
 from repro_torch.core.window import init_window
 from repro_torch.kernels import fused_step as kf
 from repro_torch.kernels import runtime
 from repro_torch.kernels.weight_prefix import weight_prefix
+from repro_torch.serve import WalkQuery, WalkService, pack_queries
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -92,6 +95,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: StreamingEngine(EngineConfig(), 16),
         lambda: interop.store_from_ref(dict(
             src=[0], dst=[0], ts=[0], num_edges=1)),
+        lambda: WalkService(EngineConfig()),
+        # the lane batch generate_walk_lanes takes, and its buffers
+        lambda: pack_queries([WalkQuery(start_nodes=(1,))], 8, 16),
+        lambda: alloc_walk_buffers(WalkConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
