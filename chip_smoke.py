@@ -1136,6 +1136,438 @@ def serve_cuda_equals_cpu(dev) -> dict:
                                  for r in out["cpu"].values()}))
 
 
+# ---- alias tables, node2vec and probes ------------------------------------
+# served queries of serve_tables, compared with solo runs
+SERVE_TABLE_QUERIES = 256
+SERVE_TABLE_SOLO = 32
+# node2vec phases: (p, q) of the config walks
+N2V_PQ = (0.5, 2.0)
+
+
+def count_syncs(fn):
+    """(fn(), host syncs, {site: syncs}): the calls inside fn that wait
+    for the device, each counted once under
+    torch.cuda.set_sync_debug_mode("warn"), by the line of the repository
+    that made them. An explicit torch.cuda.synchronize (a line of torch
+    itself, which the warning does not always report) is left out."""
+    import os
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if ("synchroniz" in str(w.message)
+                and os.path.dirname(torch.__file__) not in w.filename):
+            site = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return out, sum(sites.values()), sites
+
+
+def ingest_readings(state, batch, nc, spec) -> dict:
+    """One more batch on a table-carrying window: ingest ms with and
+    without tables (CUDA events, in turns), the incremental update and the
+    from-scratch build alone, device kernels of each ingest, and the dirty
+    nodes of this advance, those with a region (the ``rebuilt``
+    increment) and those rebuilt as rows (region within degree_cap)."""
+    import torch
+    from repro_torch.core import window as tw
+    from repro_torch.core.alias import build_tables, update_tables
+    from repro_torch.core.edge_store import EdgeBatch, stack_batches
+    stacked = stack_batches([batch], batch[0].shape[0], device=state.t_now.device)
+    one = EdgeBatch(*(x[0] for x in stacked))
+    plain = lambda: tw.ingest(state, one, nc)   # noqa: E731
+    tabled = lambda: tw.ingest(state, one, nc, table=spec)  # noqa: E731
+    run_s, run_b, _, _, evict_to = tw._prepare_runs(
+        state.index.store, state.t_now, state.window, one, nc)
+    merged = tw._merge_runs(run_s, run_b)
+    dirty = tw._dirty_nodes(state, run_b, merged, run_s[3], run_b[3],
+                            evict_to, nc)
+    new = plain()
+    update = lambda: update_tables(  # noqa: E731
+        new.index, spec, old_starts=state.index.node_starts,
+        old_tables=state.tables, dirty=dirty)
+    ms = {}
+    for name, fn in (("ingest_ms", plain), ("ingest_tables_ms", tabled),
+                     ("ingest_tables_ms_again", tabled),
+                     ("ingest_ms_again", plain)):
+        ms[name] = cuda_ms(fn, reps=3, warmup=1)
+    ms["update_ms"] = cuda_ms(update, reps=3, warmup=1)
+    ms["build_ms"] = cuda_ms(lambda: build_tables(new.index, spec), reps=3,
+                             warmup=1)
+    deg = new.index.node_starts[1:nc + 1] - new.index.node_starts[:nc]
+    out = dict(**ms, kernels_ingest=profile_call(plain)["kernels"],
+               kernels_ingest_tables=profile_call(tabled)["kernels"],
+               kernels_update=profile_call(update)["kernels"],
+               dirty_nodes=int(dirty.sum()),
+               rebuilt_nodes=int((dirty & (deg > 0)).sum()),
+               rebuilt_rows=int((dirty & (deg > 0)
+                                 & (deg <= spec.degree_cap)).sum()),
+               tabled_nodes=int(((deg > 0) & (deg <= spec.degree_cap)).sum()),
+               edges=int(new.index.num_edges))
+    del new, dirty, merged
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_row_masses(index, tables, spec, rows_per_pass=1 << 20) -> dict:
+    """Every tabled row (0 < deg <= degree_cap): the masses its (thresh,
+    partner) encode equal quantize_row of its region weights, and sum to
+    deg·M."""
+    import torch
+    from repro_torch.core.alias import quantize_row, region_weights, row_masses
+    nc, E = index.node_capacity, index.edge_capacity
+    M, R = spec.radix, spec.degree_cap
+    starts = index.node_starts
+    deg = starts[1:nc + 1] - starts[:nc]
+    ids = torch.nonzero((deg > 0) & (deg <= R))[:, 0]
+    w = region_weights(index, spec)
+    off = torch.arange(R, device=w.device)
+    bad = 0
+    for p0 in range(0, ids.numel(), rows_per_pass):
+        v = ids[p0:p0 + rows_per_pass]
+        d = deg[v]
+        pos = (starts[v].long()[:, None] + off).clamp(max=E - 1)
+        inrow = off[None, :] < d[:, None]
+        got = row_masses(tables.thresh[pos], tables.partner[pos], d, M)
+        want = quantize_row(torch.where(inrow, w[pos], 0.0), d, M)
+        bad += int(((got != want).any(1) | (got.sum(1) != d * M)).sum())
+    require(bad == 0, f"table_path: {bad} rows fail the mass round trip")
+    return dict(rows=int(ids.numel()), rows_failing=bad)
+
+
+class RejectionRounds:
+    """Observer: for every node2vec hop, the round at which each live lane
+    with a previous node accepted (N2V_ROUNDS where every round rejected
+    and the round-0 proposal stands). Wraps the walk engine's
+    ``_draw_pick`` (for the live mask, b > c) and ``_proposals`` (for the
+    rounds' acceptances)."""
+
+    def __init__(self):
+        self.hist = None
+
+    @contextlib.contextmanager
+    def watch(self):
+        import torch
+        from repro_torch.core import walk_engine as we
+        draw, props = we._draw_pick, we._proposals
+        live = []
+
+        def draw_seen(index, scfg, hop_key, a, c, b, *args, **kw):
+            live[:] = [b > c]
+            return draw(index, scfg, hop_key, a, c, b, *args, **kw)
+
+        def props_seen(index, pick, beta_of, prev, us, beta_max):
+            k, ok = props(index, pick, beta_of, prev, us, beta_max)
+            first = torch.where(ok.any(0), ok.to(torch.int8).argmax(0),
+                                we.N2V_ROUNDS)
+            keep = live[0] & (prev >= 0)
+            h = torch.bincount(first[keep], minlength=we.N2V_ROUNDS + 1)
+            self.hist = h if self.hist is None else self.hist + h
+            return k, ok
+
+        we._draw_pick, we._proposals = draw_seen, props_seen
+        try:
+            yield self
+        finally:
+            we._draw_pick, we._proposals = draw, props
+
+    def reading(self) -> dict:
+        h = self.hist.cpu().tolist()
+        n = sum(h)
+        return dict(lanes=n, accepted_at_round=h[:-1], none_accepted=h[-1],
+                    mean_rounds=sum((r + 1) * c for r, c in enumerate(h[:-1])
+                                    ) / max(n - h[-1], 1)
+                    if n else None)
+
+
+def node2vec_path(index, tables, wcfg) -> dict:
+    """Node2vec at full width on the table path's window: index mode,
+    exponential and table bias; walks/s on the grouped path, hop
+    validity, grouped == fullwalk for one key, rejection rounds (from an
+    observed third run)."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs.base import SamplerConfig, SchedulerConfig
+    from repro_torch.core.validation import validate_walks
+    from repro_torch.core.walk_engine import generate_walks
+    key = prng.PRNGKey(17)
+    p, q = N2V_PQ
+    t0 = time.perf_counter()
+    out = {}
+    for name, bias in (("index_exponential", "exponential"),
+                       ("table", "table")):
+        scfg = SamplerConfig(mode="index", bias=bias, node2vec_p=p,
+                             node2vec_q=q)
+        runs = {}
+        for path in ("grouped", "fullwalk"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[path] = generate_walks(index, key, wcfg, scfg,
+                                        SchedulerConfig(path=path),
+                                        tables=tables)
+            torch.cuda.synchronize()
+            runs[path + "_s"] = time.perf_counter() - t0
+        rep = validate_walks(index, runs["grouped"])
+        differ = rows_differ(runs["grouped"], runs["fullwalk"])
+        require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+                f"node2vec {name}: hop validity {rep.hop_valid_frac}")
+        require(differ == 0, f"node2vec {name}: {differ} walks differ "
+                             "between grouped and fullwalk")
+        rounds = RejectionRounds()
+        with rounds.watch():
+            again = generate_walks(index, key, wcfg, scfg,
+                                   SchedulerConfig(path="grouped"),
+                                   tables=tables)
+        require(rows_differ(again, runs["grouped"]) == 0,
+                f"node2vec {name}: the observed run differs")
+        lengths = runs["grouped"].lengths.double()
+        out[name] = dict(
+            p=p, q=q, seconds=runs["grouped_s"],
+            fullwalk_seconds=runs["fullwalk_s"],
+            walks_per_s=wcfg.num_walks / runs["grouped_s"],
+            hops_per_s=float((lengths - 1).clamp(min=0).sum())
+            / runs["grouped_s"],
+            mean_len=float(lengths.mean()), hop_valid_frac=rep.hop_valid_frac,
+            num_hops=rep.num_hops, grouped_vs_fullwalk_differ=differ,
+            rejection=rounds.reading())
+        del runs, again
+        torch.cuda.empty_cache()
+    return dict(walks=wcfg.num_walks, max_length=wcfg.max_length,
+                window_edges=int(index.num_edges), **out,
+                phase_seconds=time.perf_counter() - t0)
+
+
+def table_traffic(rng, num_nodes, hubs, n):
+    """serve_traffic's queries, a third of them table-coded, a third
+    second-order with (n2v_p, n2v_q) in {0.5, 1, 2}² minus (1, 1), the
+    rest closed-form as they came."""
+    import dataclasses
+    pq = (0.5, 1.0, 2.0)
+    out = []
+    for qu in serve_traffic(rng, num_nodes, hubs, n=n):
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            qu = dataclasses.replace(qu, bias="table")
+        elif kind == 1:
+            p, q = (pq[i] for i in rng.integers(0, 3, 2))
+            if p == q == 1.0:
+                q = 2.0
+            qu = dataclasses.replace(qu, n2v_p=p, n2v_q=q)
+        out.append(qu)
+    return out
+
+
+def serve_tables(cfg, batches, dev) -> dict:
+    """WalkService on the grouped path with exponential alias tables, on
+    the main path's window after SERVE_WINDOW_BATCHES batches, the next
+    batch ingested (tables maintained) while serving: table-coded,
+    second-order and closed-form queries; checked against solo runs and a
+    synchronous ring, for hop validity and host syncs in the launch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import (SamplerConfig, SchedulerConfig,
+                                          ServeConfig)
+    from repro_torch.kernels import runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkService
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    cfg_t = dataclasses.replace(
+        cfg, sampler=SamplerConfig(mode="index", table_weight="exponential"),
+        scheduler=SchedulerConfig(path="grouped", regroup="bucket"))
+    svc, window_s = serve_window(cfg_t, ServeConfig(), batches, dev)
+    nc = cfg.window.node_capacity
+    idx = svc.snapshots.current.index
+    deg = idx.node_starts[1:nc + 1] - idx.node_starts[:nc]
+    hubs = torch.topk(deg, max(1, int(nc * SERVE_HUB_SHARE))).indices
+    queries = table_traffic(rng, nc, hubs.cpu().numpy(), SERVE_TABLE_QUERIES)
+    next_batch = batches[SERVE_WINDOW_BATCHES]
+    # eight waves: the next batch is ingested from the fifth to the seventh
+    wave = max(1, len(queries) // 8)
+    svc._launch = no_host_sync(svc._launch)
+    runtime.reset_launches()
+    results, secs, states = drive_serve(svc, queries, next_batch, wave=wave)
+    launches = dict(runtime.LAUNCHES)
+    st = svc.stats
+    require(len(states) == 2, f"serve_tables: versions {sorted(states)}")
+    require(st.completed == len(queries) and st.dropped == 0,
+            f"serve_tables: {st.completed} of {len(queries)} completed, "
+            f"{st.dropped} dropped")
+    require(launches == dict(fused_hop=0, weight_prefix=2,
+                             walk_step_tiled=0),
+            f"serve_tables: launches {launches}")
+    require(all(s.tables is not None for s in states.values()),
+            "serve_tables: a snapshot has no tables")
+    validity = served_validity(results, states, 80)
+    solo = {v: WalkService(cfg_t, state=state, registry=MetricsRegistry())
+            for v, state in states.items()}
+    picked = rng.choice(sorted(results), size=SERVE_TABLE_SOLO,
+                        replace=False)
+    solo_differ = 0
+    for t in picked:
+        r = results[int(t)]
+        got = solo[r.snapshot_version].run_query_solo(r.query)
+        solo_differ += not all(np.array_equal(a, b) for a, b in zip(
+            got, (r.nodes, r.times, r.lengths)))
+    require(solo_differ == 0, f"serve_tables: {solo_differ} of "
+                              f"{SERVE_TABLE_SOLO} differ from solo")
+    kinds = dict(table=sum(q.bias == "table" for q in queries),
+                 second_order=sum(q.second_order for q in queries))
+    reading = dict(
+        queries=len(queries), kinds=kinds,
+        window_batches=SERVE_WINDOW_BATCHES,
+        window_edges=int(states[min(states)].index.num_edges),
+        window_ingest_seconds=window_s, seconds=secs, walks=st.walks,
+        hops=st.hops, walks_per_wall_s=st.walks / secs,
+        hops_per_wall_s=st.hops / secs, walks_per_s=st.walks_per_s,
+        p50_ms=st.p50_ms, p99_ms=st.p99_ms, batches=st.batches,
+        lane_occupancy=st.lane_occupancy, launches=launches,
+        alias_nodes_rebuilt=svc.registry.value("alias_nodes_rebuilt_total"),
+        versions=sorted(states), validity=validity, wave=wave,
+        solo_equal=SERVE_TABLE_SOLO, launch_host_syncs=0)
+    del svc, solo, states, idx, deg
+    torch.cuda.empty_cache()
+    other, _ = serve_window(cfg_t, ServeConfig(max_inflight=1), batches, dev)
+    got, other_secs, _ = drive_serve(other, queries, next_batch, wave=wave)
+    differ = results_differ(results, got)
+    require(differ == 0, f"serve_tables: {differ} tickets differ with "
+                         "max_inflight=1")
+    reading["equal_max_inflight_1"] = dict(tickets=len(got), differ=differ,
+                                           seconds=other_secs)
+    reading["phase_seconds"] = time.perf_counter() - t_phase
+    del other, got
+    torch.cuda.empty_cache()
+    return reading
+
+
+def tables_cuda_equals_cpu(dev) -> dict:
+    """A small window, each table weight: the card's tables after a
+    replay equal the CPU's bit for bit, and so do its table walks,
+    node2vec walks (config and second-order lanes via served tickets)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, ServeConfig,
+                                          WalkConfig, WindowConfig)
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.core.walk_engine import generate_walks
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkService
+    g = powerlaw_temporal_graph(512, 1 << 15, skew=1.2, t_max=100_000,
+                                seed=2)
+    stream = list(chronological_batches(g, 4))
+    window = WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
+                          node_capacity=512)
+    sched = SchedulerConfig(path="grouped")
+    wcfg = WalkConfig(num_walks=1024, max_length=16)
+    queries = table_traffic(np.random.default_rng(6), 512, np.arange(8), 48)
+    t0 = time.perf_counter()
+    out = {}
+    for weight in ("uniform", "linear", "exponential"):
+        scfg = SamplerConfig(mode="index", bias="table", table_weight=weight)
+        got = {}
+        for d in (dev, "cpu"):
+            eng = StreamingEngine(EngineConfig(window=window, sampler=scfg,
+                                               scheduler=sched), 1 << 13,
+                                  device=d, registry=MetricsRegistry())
+            _, walks, _ = eng.replay_device(stream[:3], wcfg,
+                                            return_walks=True)
+            n2v = generate_walks(eng.state.index, prng.PRNGKey(9), wcfg,
+                                 dataclasses.replace(scfg, node2vec_p=0.5,
+                                                     node2vec_q=2.0),
+                                 sched, tables=eng.state.tables)
+            svc = WalkService(EngineConfig(
+                window=window, sampler=SamplerConfig(
+                    mode="index", table_weight=weight), scheduler=sched),
+                ServeConfig(), batch_capacity=1 << 13,
+                registry=MetricsRegistry(), device=d)
+            for b in stream[:3]:
+                svc.ingest(*b)
+            served, _, _ = drive_serve(svc, queries, stream[3], wave=8)
+            got[str(d)] = (eng.state.tables, walks, n2v, served)
+        (t_c, w_c, n_c, s_c), (t_h, w_h, n_h, s_h) = got[str(dev)], \
+            got["cpu"]
+        tables_equal = all(torch.equal(getattr(t_c, f).cpu(),
+                                       getattr(t_h, f))
+                           for f in ("thresh", "partner", "ptab", "rebuilt"))
+        walks_equal = all(np.array_equal(a, b) for a, b in zip(w_c[:3],
+                                                               w_h[:3]))
+        n2v_equal = rows_differ(on_cpu(n_c), n_h) == 0
+        differ = results_differ(s_c, s_h)
+        require(tables_equal and walks_equal and n2v_equal and differ == 0,
+                f"tables_cuda_equals_cpu ({weight}): tables {tables_equal}, "
+                f"table walks {walks_equal}, node2vec {n2v_equal}, "
+                f"{differ} tickets differ")
+        out[weight] = dict(tables_equal=True, table_walks_equal=True,
+                           node2vec_walks_equal=True, tickets=len(s_c),
+                           tickets_differ=0)
+    return dict(**out, seconds=time.perf_counter() - t0)
+
+
+def on_cpu(res):
+    """A WalkResult's arrays on the CPU."""
+    return type(res)(*(None if x is None else x.cpu() for x in res))
+
+
+def probed_replay(cfg, batches, wcfg, unprobed_walks, unprobed_syncs,
+                  args) -> dict:
+    """The main path once more with probes=True: walks byte-equal to the
+    unprobed replay, the same host syncs, and probe counters that agree
+    with ReplayStats (hops to the float32 rounding of mean_len: 4 per
+    batch at most)."""
+    import numpy as np
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.kernels import runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    reg = MetricsRegistry()
+    engine = StreamingEngine(cfg, args.edges_per_batch, registry=reg,
+                             probes=True)
+    runtime.reset_launches()
+    (stats, walks, secs), syncs, sites = count_syncs(
+        lambda: engine.replay_device(batches, wcfg, return_walks=True))
+    launches = dict(runtime.LAUNCHES)
+    differ = int(sum(not np.array_equal(a, b)
+                     for a, b in zip(walks[:3], unprobed_walks[:3])))
+    require(differ == 0, "probed replay: walks differ from the unprobed")
+    require(syncs == unprobed_syncs,
+            f"probed replay: {syncs} host syncs ({sites}) against "
+            f"{unprobed_syncs}")
+    K = len(stats.mean_len)
+    W = wcfg.num_walks
+    hops_stats = float(np.sum(W * stats.mean_len.astype(np.float64) - W))
+    probes = dict(
+        batches=reg.value("stream_batches_total", {"driver": "device"}),
+        edges_ingested=reg.value("stream_edges_ingested_total",
+                                 {"driver": "device"}),
+        late_drops=reg.value("drops_total", {"kind": "ingest_late"}, 0),
+        overflow_drops=reg.value("drops_total", {"kind": "window_overflow"},
+                                 0),
+        hops=reg.value("walk_hops_total", {"source": "replay"}),
+        walks_emitted=reg.value("walks_emitted_total", {"driver": "device"}))
+    agree = (probes["batches"] == K
+             and probes["edges_ingested"] == int(stats.ingested[-1])
+             and probes["late_drops"] == int(stats.late_drops[-1])
+             and probes["overflow_drops"] == int(stats.overflow_drops[-1])
+             and abs(probes["hops"] - hops_stats) <= 4 * K)
+    require(agree, f"probed replay: probes {probes} disagree with stats")
+    return dict(seconds=secs, host_syncs=syncs, host_sync_sites=sites,
+                unprobed_host_syncs=unprobed_syncs,
+                walks_differ=differ, probes=probes,
+                hops_from_mean_len=hops_stats, launches=launches)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -1349,11 +1781,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path at full size ------------------------------
-    engine = StreamingEngine(cfg, B)
+    engine = StreamingEngine(cfg, B, probes=False)
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
-    stats, walks, secs = engine.replay_device(batches, wcfg,
-                                              return_walks=True)
+    (stats, walks, secs), main_syncs, main_sites = count_syncs(
+        lambda: engine.replay_device(batches, wcfg, return_walks=True))
     launches = dict(runtime.LAUNCHES)
     K = args.batches
     hops_done = float(np.sum(args.walks * (stats.mean_len.astype(np.float64)
@@ -1374,6 +1806,7 @@ def main(argv=None) -> int:
          evicted=evicted, late_drops=int(stats.late_drops[-1]),
          overflow_drops=int(stats.overflow_drops[-1]),
          mean_len=stats.mean_len.tolist(), launches=launches,
+         host_syncs=main_syncs, host_sync_sites=main_sites, probes=False,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, cuts=cuts)
     require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
             f"hop validity {rep.hop_valid_frac} over {rep.num_hops} hops")
@@ -1384,7 +1817,71 @@ def main(argv=None) -> int:
     require(launches["weight_prefix"] == 2 * K,
             f"weight_prefix launches {launches['weight_prefix']} != 2 x K")
     emit("main_path_profile", **profile_batch(engine, batches[-1], wcfg))
-    del engine, walks
+    del engine
+    torch.cuda.empty_cache()
+    emit("main_path_probed", **probed_replay(cfg, batches, wcfg, walks,
+                                             main_syncs, args))
+    del walks
+    torch.cuda.empty_cache()
+
+    # ---- phase 3b: alias tables at full size (grouped path) ---------------
+    from repro_torch.core.alias import build_tables
+    from repro_torch.core.window import ingest as window_ingest
+    cfg_tab = EngineConfig(window=cfg.window,
+                           sampler=SamplerConfig(mode="index", bias="table"),
+                           scheduler=SchedulerConfig(path="grouped",
+                                                     regroup="bucket"))
+    engine = StreamingEngine(cfg_tab, B)
+    spec = engine._table
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    (stats, walks, secs), tab_syncs, tab_sites = count_syncs(
+        lambda: engine.replay_device(batches, wcfg, return_walks=True))
+    launches_tab = dict(runtime.LAUNCHES)
+    hops_done = float(np.sum(args.walks * (stats.mean_len.astype(np.float64)
+                                           - 1.0)))
+    rep = validate_walks(engine.state.index, WalkResult(
+        *(torch.as_tensor(x, device=dev)
+          for x in (walks.nodes, walks.times, walks.lengths))))
+    del walks
+    require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+            f"table path: hop validity {rep.hop_valid_frac}")
+    require(launches_tab["weight_prefix"] == 2 * K
+            and launches_tab["fused_hop"] == 0
+            and launches_tab["walk_step_tiled"] == 0,
+            f"table path: launches {launches_tab}")
+    # the table build reads one count per ingest
+    require(tab_syncs == main_syncs + K,
+            f"table path: {tab_syncs} host syncs ({tab_sites}) against the "
+            f"main path's {main_syncs} + one per batch")
+    tables = engine.state.tables
+    scratch = build_tables(engine.state.index, spec)
+    require(all(torch.equal(getattr(tables, f), getattr(scratch, f))
+                for f in ("thresh", "partner", "ptab")),
+            "table path: incremental tables differ from build_tables")
+    del scratch
+    masses = check_row_masses(engine.state.index, tables, spec)
+    rebuilt = int(tables.rebuilt)
+    state_before = engine.state
+    emit("table_path", seconds=secs, batches=K, walks_per_batch=args.walks,
+         max_length=args.length, path="grouped",
+         weight="exponential", radix=spec.radix, degree_cap=spec.degree_cap,
+         edges_per_s=int(stats.ingested[-1]) / secs,
+         walks_per_s=K * args.walks / secs, hops_per_s=hops_done / secs,
+         hop_valid_frac=rep.hop_valid_frac, num_hops_checked=rep.num_hops,
+         host_syncs=tab_syncs, host_sync_sites=tab_sites,
+         launches=launches_tab,
+         rebuilt_nodes_total=rebuilt, rebuilt_nodes_per_batch=rebuilt / K,
+         incremental_equals_build=True, row_masses=masses,
+         mean_len=stats.mean_len.tolist(),
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, cuts=cuts)
+    emit("table_path_ingest", **ingest_readings(
+        state_before, batches[-1], args.nodes, spec))
+    del state_before
+
+    # ---- phase 3c: node2vec at full width on the table path's window ------
+    emit("node2vec_path", **node2vec_path(engine.state.index, tables, wcfg))
+    del engine, tables
     torch.cuda.empty_cache()
 
     # ---- phase 4: the tiled path at full size -----------------------------
@@ -1486,11 +1983,14 @@ def main(argv=None) -> int:
                                                      res["cpu"][1][:3]))
         require(same, f"small replay ({path}): card and CPU walks differ")
     emit("small_replay_cuda_equals_cpu", ok=True, paths=["fused", "tiled"])
+    emit("tables_cuda_equals_cpu", **tables_cuda_equals_cpu(dev))
 
     # ---- phase 7: the serving path at full size ---------------------------
     serve = serve_path(args, cfg, batches, dev)
     emit("serve_path", **serve["reading"])
     emit("serve_cuda_equals_cpu", **serve_cuda_equals_cpu(dev))
+    serve_tab = serve_tables(cfg, batches, dev)
+    emit("serve_tables", **serve_tab)
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -1514,6 +2014,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/weight_prefix.py:54",
              launches=launches["weight_prefix"],
              serve_launches=serve["launches"]["weight_prefix"],
+             table_path_launches=launches_tab["weight_prefix"],
+             serve_tables_launches=serve_tab["launches"]["weight_prefix"],
              max_abs_err=wp_max_err,
              **times["weight_prefix"], plain_ms=plain_wp, bound_ms=bound_wp,
              bound_by="bytes", library_ms=lib_wp),

@@ -1,7 +1,14 @@
-"""The streaming walk sampler: edge store, dual index, samplers, dispatch
-plane and regroup, the walk engine (fullwalk, grouped, tiled and fused
-paths; per-lane batches; reusable walk buffers), sliding window and
-streaming replay."""
+"""The streaming walk sampler: edge store, dual index, samplers, alias
+tables, dispatch plane and regroup, the walk engine (fullwalk, grouped,
+tiled and fused paths; per-lane batches; node2vec; reusable walk
+buffers), sliding window and streaming replay."""
+from repro_torch.core.alias import (
+    AliasTables,
+    TableSpec,
+    build_tables,
+    spec_from_sampler,
+    update_tables,
+)
 from repro_torch.core.edge_store import (
     EdgeBatch,
     EdgeStore,
@@ -14,8 +21,13 @@ from repro_torch.core.streaming import (
     StreamingEngine,
     StreamStats,
     replay_scan,
+    replay_scan_probed,
 )
-from repro_torch.core.temporal_index import TemporalIndex, build_index
+from repro_torch.core.temporal_index import (
+    TemporalIndex,
+    build_index,
+    build_index_donated,
+)
 from repro_torch.core.walk_engine import (
     LaneParams,
     WalkBuffers,
@@ -25,13 +37,21 @@ from repro_torch.core.walk_engine import (
     generate_walks,
     generate_walks_donated,
 )
-from repro_torch.core.window import WindowState, ingest, init_window
+from repro_torch.core.window import (
+    WindowState,
+    ingest,
+    ingest_nodonate,
+    ingest_sort,
+    init_window,
+)
 
 __all__ = [
-    "EdgeBatch", "EdgeStore", "empty_store", "make_batch", "stack_batches",
-    "store_from_arrays", "StreamingEngine", "StreamStats", "replay_scan",
-    "TemporalIndex", "build_index", "LaneParams", "WalkBuffers",
-    "WalkResult", "alloc_walk_buffers", "generate_walk_lanes",
-    "generate_walks", "generate_walks_donated", "WindowState", "ingest",
-    "init_window",
+    "AliasTables", "TableSpec", "build_tables", "spec_from_sampler",
+    "update_tables", "EdgeBatch", "EdgeStore", "empty_store", "make_batch",
+    "stack_batches", "store_from_arrays", "StreamingEngine", "StreamStats",
+    "replay_scan", "replay_scan_probed", "TemporalIndex", "build_index",
+    "build_index_donated", "LaneParams", "WalkBuffers", "WalkResult",
+    "alloc_walk_buffers", "generate_walk_lanes", "generate_walks",
+    "generate_walks_donated", "WindowState", "ingest", "ingest_nodonate",
+    "ingest_sort", "init_window",
 ]

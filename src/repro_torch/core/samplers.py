@@ -7,6 +7,9 @@
 * ``weight`` mode — exact inverse transform over the index's prefix arrays
   (``weighted_pick_exp``, ``weighted_pick_linear``), by a binary search
   with the reference's fixed step count.
+* temporal node2vec — the second-order bias β(u, w) that the walk engine
+  applies by rejection on the first-order proposal, with acceptance
+  β/β_max, β_max = max(1/p, 1, 1/q) (``node2vec_beta`` and its lane form).
 
 Every expression keeps the reference's float32 operation order, one
 PyTorch op per reference op, so the picks are bit-identical. The square
@@ -21,6 +24,7 @@ import math
 import torch
 
 from repro_torch.configs.base import SamplerConfig
+from repro_torch.core.temporal_index import adjacency_contains
 
 _EXP_EXACT_MAX_N = 80.0   # e^n fits float32 comfortably up to ~88
 
@@ -218,3 +222,41 @@ def pick_start_edges(index, cfg: SamplerConfig,
         k = _shifted_lower_bound(index.plin_store, zero, b, u * total)
         return torch.where(total > 0, k, index_uniform(u, n))
     return index_uniform(u, n)
+
+
+# ---------------------------------------------------------------------------
+# Temporal node2vec (second-order bias by rejection, paper §2.5)
+# ---------------------------------------------------------------------------
+
+
+def node2vec_beta(index, prev: torch.Tensor, cand: torch.Tensor, p: float,
+                  q: float) -> torch.Tensor:
+    """β(u, w): 1/p if w == prev (return), 1 if w is adjacent to prev,
+    1/q otherwise; 1/p and 1/q divide in Python double, then round to
+    float32, as the reference's weakly typed scalars do."""
+    is_return = cand == prev
+    is_common = adjacency_contains(index, prev, cand)
+    return torch.where(is_return, 1.0 / p,
+                       torch.where(is_common, 1.0, 1.0 / q)).to(
+                           torch.float32)
+
+
+def node2vec_max_beta(p: float, q: float) -> float:
+    return max(1.0 / p, 1.0, 1.0 / q)
+
+
+def node2vec_beta_lanes(index, prev: torch.Tensor, cand: torch.Tensor,
+                        p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Per-lane β(u, w) with float32 (p, q) arrays: 1/p and 1/q divide in
+    float32."""
+    is_return = cand == prev
+    is_common = adjacency_contains(index, prev, cand)
+    one = torch.ones((), dtype=torch.float32, device=p.device)
+    return torch.where(is_return, one / p,
+                       torch.where(is_common, one, one / q))
+
+
+def node2vec_max_beta_lanes(p: torch.Tensor, q: torch.Tensor
+                            ) -> torch.Tensor:
+    one = torch.ones((), dtype=torch.float32, device=p.device)
+    return torch.maximum(torch.maximum(one / p, one), one / q)

@@ -8,12 +8,21 @@ replay_device`` reads them with one host synchronisation at the end —
 the reference's ``replay_scan``, with its ``lax.scan`` written as a
 Python loop over device-resident batches.
 
+``replay_scan_probed`` is ``replay_scan`` plus a probe vector
+(obs/probes.py) updated on the device per batch; a ``StreamingEngine``
+with ``probes=True`` (the default) reads it in the same one copy as the
+statistics, so the probed replay emits the same bits and adds no host
+sync.
+
 ``StreamingEngine.replay`` is the host loop: one ingest and one
 walk batch per edge batch, each waited for, so ``StreamStats`` holds
 per-batch stage times; ``sample_walks``/``sample_walks_donated`` draw one
 walk batch from the current window. They publish into the metrics
-registry (``obs/registry.py``); ``replay_device`` has ``probes=False``
-semantics (the reference's device probe vectors are not yet ported).
+registry (``obs/registry.py``).
+
+A config with ``bias="table"`` (or a ``table_weight``) maintains alias
+tables through every ingest (``spec_from_sampler``, core/alias.py) and
+draws its walks from them; ``table=`` does the same for the functions.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from repro_torch.configs.base import (
     SchedulerConfig,
     WalkConfig,
 )
+from repro_torch.core.alias import TableSpec, spec_from_sampler
 from repro_torch.core.edge_store import EdgeBatch, make_batch, stack_batches
 from repro_torch.core.walk_engine import (
     WalkBuffers,
@@ -39,8 +49,15 @@ from repro_torch.core.walk_engine import (
     generate_walks,
     generate_walks_donated,
 )
-from repro_torch.core.window import WindowState, ingest, init_window
+from repro_torch.core.window import (WindowState, ingest, ingest_sort,
+                                     init_window)
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs.probes import (
+    NUM_REPLAY_PROBES,
+    flush_replay_probes,
+    replay_probe_update,
+    replay_probe_zeros,
+)
 from repro_torch.obs.registry import MetricsRegistry, count_drop, get_registry
 from repro_torch.obs.tracing import span
 
@@ -76,56 +93,110 @@ class ReplayStats(NamedTuple):
 
 def ingest_and_walk(state: WindowState, batch: EdgeBatch, key,
                     node_capacity: int, wcfg: WalkConfig,
-                    scfg: SamplerConfig, sched_cfg: SchedulerConfig):
-    """One batch: ingest + rebuild + walks. Returns (state, WalkResult)."""
-    state = ingest(state, batch, node_capacity)
-    return state, generate_walks(state.index, key, wcfg, scfg, sched_cfg)
+                    scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                    table: Optional[TableSpec] = None):
+    """One batch: ingest + rebuild (+ alias tables with ``table``) +
+    walks. Returns (state, WalkResult)."""
+    state = ingest(state, batch, node_capacity, table=table)
+    return state, generate_walks(state.index, key, wcfg, scfg, sched_cfg,
+                                 tables=state.tables)
+
+
+def _replay_scan_impl(state: WindowState, batches: EdgeBatch, key,
+                      node_capacity: int, wcfg: WalkConfig,
+                      scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                      table: Optional[TableSpec], with_probes: bool):
+    rows = []
+    walks = None
+    pv = replay_probe_zeros(batches.src.device) if with_probes else None
+    for i in range(batches.src.shape[0]):
+        key, sub = prng.split(key)
+        batch = EdgeBatch(batches.src[i], batches.dst[i], batches.ts[i],
+                          batches.count[i])
+        prev = state
+        state, walks = ingest_and_walk(state, batch, sub, node_capacity,
+                                       wcfg, scfg, sched_cfg, table=table)
+        rows.append((state.index.num_edges, state.t_now, state.ingested,
+                     state.late_drops, state.overflow_drops,
+                     walks.lengths.sum().to(torch.float32)
+                     / walks.lengths.shape[0]))
+        if with_probes:
+            pv = replay_probe_update(
+                pv, ingested_delta=state.ingested - prev.ingested,
+                late_delta=state.late_drops - prev.late_drops,
+                overflow_delta=state.overflow_drops - prev.overflow_drops,
+                lengths=walks.lengths)
+    stats = ReplayStats(*(torch.stack(col) for col in zip(*rows)))
+    if with_probes:
+        return state, stats, walks, pv
+    return state, stats, walks
 
 
 def replay_scan(state: WindowState, batches: EdgeBatch, key,
                 node_capacity: int, wcfg: WalkConfig, scfg: SamplerConfig,
-                sched_cfg: SchedulerConfig):
+                sched_cfg: SchedulerConfig,
+                table: Optional[TableSpec] = None):
     """Replay K stacked batches ([K, B_cap] arrays) on the device.
 
     Returns ``(final_state, ReplayStats, final_walks)`` with everything
     still on the device; nothing here waits for it.
     """
-    rows = []
-    walks = None
-    for i in range(batches.src.shape[0]):
-        key, sub = prng.split(key)
-        batch = EdgeBatch(batches.src[i], batches.dst[i], batches.ts[i],
-                          batches.count[i])
-        state, walks = ingest_and_walk(state, batch, sub, node_capacity,
-                                       wcfg, scfg, sched_cfg)
-        rows.append((state.index.num_edges, state.t_now, state.ingested,
-                     state.late_drops, state.overflow_drops,
-                     walks.lengths.sum().to(torch.float32)
-                     / walks.lengths.shape[0]))
-    stats = ReplayStats(*(torch.stack(col) for col in zip(*rows)))
-    return state, stats, walks
+    return _replay_scan_impl(state, batches, key, node_capacity, wcfg,
+                             scfg, sched_cfg, table, with_probes=False)
+
+
+def replay_scan_probed(state: WindowState, batches: EdgeBatch, key,
+                       node_capacity: int, wcfg: WalkConfig,
+                       scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                       table: Optional[TableSpec] = None):
+    """``replay_scan`` plus a replay probe vector (DESIGN.md §16): returns
+    ``(final_state, ReplayStats, final_walks, probes)`` with ``probes`` an
+    int32[NUM_REPLAY_PROBES] device tensor accumulated over the batches.
+    Walks and statistics are those of ``replay_scan``, bit for bit."""
+    return _replay_scan_impl(state, batches, key, node_capacity, wcfg,
+                             scfg, sched_cfg, table, with_probes=True)
 
 
 class StreamingEngine:
     """Tempest's end-to-end loop: ingest -> rebuild -> walk, on ``device``
-    (CUDA unless the caller names another)."""
+    (CUDA unless the caller names another).
 
-    def __init__(self, cfg: EngineConfig, batch_capacity: int, device=None,
-                 registry: Optional[MetricsRegistry] = None):
+    ``ingest_impl`` selects the host loop's window advance: ``"merge"``
+    (default) or ``"sort"`` (the reference's seed path). ``probes=False``
+    runs ``replay_device`` without the probe vector and publishes nothing
+    from it.
+    """
+
+    def __init__(self, cfg: EngineConfig, batch_capacity: int,
+                 ingest_impl: str = "merge", device=None,
+                 registry: Optional[MetricsRegistry] = None,
+                 probes: bool = True):
+        if ingest_impl not in ("merge", "sort"):
+            raise ValueError(f"unknown ingest_impl {ingest_impl!r}")
         self.cfg = cfg
         self.batch_capacity = batch_capacity
         self.device = resolve_device(device)
+        self._ingest = ingest if ingest_impl == "merge" else ingest_sort
+        # bias='table' configs maintain alias tables through every ingest
+        self._table = spec_from_sampler(cfg.sampler)
+        if self._table is not None and ingest_impl == "sort":
+            raise ValueError(
+                "alias-table maintenance (bias='table') requires the merge "
+                "ingest path; the 'sort' reference path does not thread "
+                "table state")
         self.state: WindowState = init_window(
             cfg.window.edge_capacity, cfg.window.node_capacity,
-            int(cfg.window.duration), device=self.device)
+            int(cfg.window.duration), table=self._table, device=self.device)
         self.key = prng.PRNGKey(cfg.seed)
         self.stats = StreamStats()
         self.registry = registry if registry is not None else get_registry()
+        self.probes = probes
         # window-counter baselines: the state's counters are cumulative,
         # the registry takes deltas
         self._ingested_seen = 0
         self._late_seen = 0
         self._overflow_seen = 0
+        self._rebuilt_seen = 0
         # walk-buffer pool for sample_walks_donated, keyed by (W, L)
         self._walk_bufs: dict = {}
 
@@ -157,6 +228,39 @@ class StreamingEngine:
         self._ingested_seen = ingested
         self._late_seen = late
         self._overflow_seen = overflow
+        if self.state.tables is not None:
+            self._publish_tables(int(self.state.tables.rebuilt))
+
+    def _publish_tables(self, rebuilt: int) -> None:
+        """Alias-table maintenance counter: node rebuilds the incremental
+        update performed (``rebuilt`` is the tables' cumulative count)."""
+        self.registry.inc("alias_nodes_rebuilt_total",
+                          max(0, rebuilt - self._rebuilt_seen),
+                          help="alias-table node rebuilds performed by "
+                               "incremental window maintenance")
+        self._rebuilt_seen = rebuilt
+
+    def _publish_window_from_replay(self, stats: ReplayStats,
+                                    rebuilt: Optional[int]) -> None:
+        """Window gauges after a device replay; the ingest and drop
+        counters came from the probe vector, so only the baselines
+        advance here."""
+        if stats.edges_active.size == 0:
+            return
+        reg = self.registry
+        edges = int(stats.edges_active[-1])
+        reg.set_gauge("window_edges_active", edges,
+                      help="edges resident in the temporal window")
+        reg.set_gauge("window_t_now", int(stats.t_now[-1]),
+                      help="watermark timestamp of the window")
+        reg.set_gauge("window_occupancy",
+                      edges / self.cfg.window.edge_capacity,
+                      help="window fill fraction (edges_active / capacity)")
+        self._ingested_seen = int(stats.ingested[-1])
+        self._late_seen = int(stats.late_drops[-1])
+        self._overflow_seen = int(stats.overflow_drops[-1])
+        if rebuilt is not None:
+            self._publish_tables(rebuilt)
 
     def ingest_batch(self, src, dst, ts) -> None:
         """Ingest one host batch and wait for it (a host-loop stage)."""
@@ -164,8 +268,13 @@ class StreamingEngine:
                            device=self.device)
         t0 = time.perf_counter()
         with span("ingest_merge", self.registry):
-            self.state = ingest(self.state, batch,
-                                self.cfg.window.node_capacity)
+            if self._table is not None:
+                self.state = self._ingest(self.state, batch,
+                                          self.cfg.window.node_capacity,
+                                          table=self._table)
+            else:
+                self.state = self._ingest(self.state, batch,
+                                          self.cfg.window.node_capacity)
             self._sync()
         self.stats.ingest_s.append(time.perf_counter() - t0)
         self.stats.edges_active.append(int(self.state.index.num_edges))
@@ -181,7 +290,8 @@ class StreamingEngine:
         self.key, sub = prng.split(self.key)
         t0 = time.perf_counter()
         res = generate_walks(self.state.index, sub, wcfg, self.cfg.sampler,
-                             self.cfg.scheduler, collect_stats=collect_stats)
+                             self.cfg.scheduler, collect_stats=collect_stats,
+                             tables=self.state.tables)
         self._finish_sample(res, t0, path="host")
         return res
 
@@ -197,7 +307,8 @@ class StreamingEngine:
         self.key, sub = prng.split(self.key)
         t0 = time.perf_counter()
         res = generate_walks_donated(self.state.index, sub, bufs, wcfg,
-                                     self.cfg.sampler, self.cfg.scheduler)
+                                     self.cfg.sampler, self.cfg.scheduler,
+                                     tables=self.state.tables)
         self._finish_sample(res, t0, path="donated")
         self._walk_bufs[shape_key] = WalkBuffers(res.nodes, res.times)
         return res
@@ -237,19 +348,46 @@ class StreamingEngine:
 
     def replay_device(self, batches: Iterable, wcfg: WalkConfig,
                       return_walks: bool = False):
-        """All batches on the device, one host sync at the end. Returns
-        (ReplayStats of numpy arrays, wall seconds), or (stats, final-batch
-        WalkResult of numpy arrays, seconds) with ``return_walks``."""
+        """All batches on the device, one host sync at the end: the
+        statistics, the probe vector and the tables' rebuild count come
+        back in one copy. Returns (ReplayStats of numpy arrays, wall
+        seconds), or (stats, final-batch WalkResult of numpy arrays,
+        seconds) with ``return_walks``."""
         stacked = stack_batches(batches, self.batch_capacity,
                                 device=self.device)
         self.key, sub = prng.split(self.key)
         self._sync()
         t0 = time.perf_counter()
-        self.state, stats, walks = replay_scan(
-            self.state, stacked, sub, self.cfg.window.node_capacity, wcfg,
-            self.cfg.sampler, self.cfg.scheduler)
-        host_stats = ReplayStats(*(a.cpu().numpy() for a in stats))
+        scan = replay_scan_probed if self.probes else replay_scan
+        out = scan(self.state, stacked, sub, self.cfg.window.node_capacity,
+                   wcfg, self.cfg.sampler, self.cfg.scheduler,
+                   table=self._table)
+        self.state, stats, walks = out[:3]
+        # one int32 copy: the stats rows (mean_len by its bits), then the
+        # probes and the rebuild count where there are any
+        words = [torch.stack([a if a.dtype == torch.int32
+                              else a.view(torch.int32) for a in stats])
+                 .reshape(-1)]
+        if self.probes:
+            words.append(out[3])
+        if self.state.tables is not None:
+            words.append(self.state.tables.rebuilt.reshape(1))
+        host = torch.cat(words).cpu().numpy()
         elapsed = time.perf_counter() - t0
+        K = stats.edges_active.shape[0]
+        rows = host[:len(stats) * K].reshape(len(stats), K)
+        host_stats = ReplayStats(*(
+            rows[i].view(np.float32) if f == "mean_len" else rows[i]
+            for i, f in enumerate(ReplayStats._fields)))
+        tail = host[len(stats) * K:]
+        rebuilt = int(tail[-1]) if self.state.tables is not None else None
+        if self.probes:
+            flush_replay_probes(self.registry, tail[:NUM_REPLAY_PROBES],
+                                driver="device")
+            self.registry.observe("replay_seconds", elapsed,
+                                  labels={"driver": "device"},
+                                  help="wall time per replay_device call")
+            self._publish_window_from_replay(host_stats, rebuilt)
         if return_walks:
             host_walks = WalkResult(nodes=walks.nodes.cpu().numpy(),
                                     times=walks.times.cpu().numpy(),

@@ -125,8 +125,9 @@ def build_index(store: EdgeStore, node_capacity: int,
         torch.where(in_range, elem_lin, 0.0), 0)])
 
     # store-level prefixes (start-edge selection over the whole window)
-    t_hi = torch.where(n_valid > 0,
-                       store.ts[(n_valid.long() - 1).clamp(min=0)], 0)
+    # (a one-element index: indexing by a 0-d tensor reads it on the host)
+    t_hi = torch.where(n_valid > 0, store.ts.index_select(
+        0, (n_valid.long() - 1).clamp(min=0).reshape(1))[0], 0)
     t_lo = store.ts[0]
     pexp_store = weight_prefix((store.ts - t_hi).to(torch.float32), valid,
                                bias_scale)
@@ -188,3 +189,22 @@ def temporal_cutoff(index: TemporalIndex, a: torch.Tensor, b: torch.Tensor,
                     t: torch.Tensor) -> torch.Tensor:
     """c = first position in [a, b) with ns_ts > t, so Γ_t(v) = [c, b)."""
     return ranged_search(index.ns_ts, a, b, t, strict=True)
+
+
+def node_range_adj(index: TemporalIndex, node: torch.Tensor):
+    """[a, b) region of ``node`` in the adjacency view: the node-ts view's
+    (both sort by source first, over the same multiset of edges)."""
+    return node_range(index, node)
+
+
+def adjacency_contains(index: TemporalIndex, u: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """Whether an edge u -> w (any timestamp) is in the window — O(log E)."""
+    a, b = node_range_adj(index, u)
+    k = ranged_search(index.adj_dst, a, b, w, strict=False)
+    return (k < b) & (index.adj_dst[k.clamp(0, index.edge_capacity - 1)
+                                    .long()] == w)
+
+
+# the reference's donating build; the port's build never writes its store
+build_index_donated = build_index

@@ -4,11 +4,14 @@ For every emitted walk: **hop validity** — each hop (u -> v at time t) is
 a real edge (u, v, t) of the active window and timestamps strictly
 increase (the first hop of an edges-start walk repeats the start edge's
 time) — and **walk validity** — all hops of the walk are valid.
+``validate_walks_np`` is the same check on the host over raw
+(src, dst, ts) arrays, by a Python set of edges.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.temporal_index import TemporalIndex, ranged_search
@@ -62,3 +65,31 @@ def validate_walks(index: TemporalIndex, result: WalkResult
         hop_valid_frac=hop_ok_sum / max(n_hops, 1),
         walk_valid_frac=walk_ok_sum / max(n_walks, 1),
         num_hops=n_hops, num_walks=n_walks)
+
+
+def validate_walks_np(edges: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                      nodes: np.ndarray, times: np.ndarray,
+                      lengths: np.ndarray) -> Tuple[float, float]:
+    """(hop validity, walk validity) of host walks against raw
+    (src, dst, ts) edge arrays."""
+    src, dst, ts = edges
+    edge_set = set(zip(np.asarray(src).tolist(), np.asarray(dst).tolist(),
+                       np.asarray(ts).tolist()))
+    hop_total = hop_ok = 0
+    walk_total = walk_ok = 0
+    for w in range(nodes.shape[0]):
+        L = int(lengths[w])
+        if L <= 1:
+            continue
+        walk_total += 1
+        ok = True
+        for i in range(L - 1):
+            hop_total += 1
+            u, v = int(nodes[w, i]), int(nodes[w, i + 1])
+            t, t_prev = int(times[w, i + 1]), int(times[w, i])
+            valid = (u, v, t) in edge_set and (
+                t > t_prev or (i == 0 and t == t_prev))
+            hop_ok += valid
+            ok &= valid
+        walk_ok += ok
+    return hop_ok / max(hop_total, 1), walk_ok / max(walk_total, 1)

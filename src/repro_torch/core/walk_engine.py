@@ -1,5 +1,5 @@
 """Temporal random-walk engine (paper §2.4), PyTorch port of
-core/walk_engine.py for first-order walks.
+core/walk_engine.py.
 
 Execution paths (``SchedulerConfig.path``), as in the reference:
 
@@ -30,9 +30,19 @@ for the start draw and tag s+1 for hop s, so a lane's walk does not
 depend on the batch it rides in. They run on ``fullwalk``, ``grouped``
 and ``fused``; the fused kernel dispatches the bias code per lane.
 
-``generate_walks(..., buffers=)`` and ``generate_walks_donated`` write the
-walks into the caller's ``WalkBuffers`` in place (every cell is
-overwritten) and return them as the result's ``nodes``/``times``.
+**Alias tables and node2vec** (DESIGN.md §17) run on ``fullwalk`` and
+``grouped``, as in the reference. ``bias="table"`` (or lanes coded
+"table") draws through ``alias.alias_pick`` over the window's
+``AliasTables``, passed as ``tables=``. Temporal node2vec rejects the
+first-order proposal N2V_ROUNDS times with acceptance β/β_max: config
+(p, q) draw their uniforms as ``uniform(hop_key, (N2V_ROUNDS, 2, W))``,
+second-order lanes from the ``N2V_TAG_BASE`` substreams of their own
+keys, so first-order streams are untouched.
+
+``generate_walks(..., buffers=)``, ``generate_walk_lanes(...,
+buffers=)`` and ``generate_walks_donated`` write the walks into the
+caller's ``WalkBuffers`` in place (every cell is overwritten) and return
+them as the result's ``nodes``/``times``.
 """
 from __future__ import annotations
 
@@ -44,9 +54,15 @@ import torch
 from repro_torch import random as prng
 from repro_torch.configs.base import SamplerConfig, SchedulerConfig, WalkConfig
 from repro_torch.core import scheduler as sched
+from repro_torch.core.alias import AliasTables, alias_pick
 from repro_torch.core.samplers import (
     BIAS_CODES,
+    BIAS_TABLE,
     bias_code,
+    node2vec_beta,
+    node2vec_beta_lanes,
+    node2vec_max_beta,
+    node2vec_max_beta_lanes,
     pick_in_neighborhood,
     pick_in_neighborhood_lanes,
     pick_start_edges,
@@ -63,6 +79,13 @@ from repro_torch.kernels.ops import walk_step
 from repro_torch.kernels.runtime import resolve_device
 
 NODE_PAD = -1          # sentinel in emitted walks beyond walk length
+N2V_ROUNDS = 8         # rejection-sampling rounds per hop
+# Second-order lanes draw their rejection uniforms from tags
+# N2V_TAG_BASE + step·(2·N2V_ROUNDS) + 2r + j, far above any per-step tag
+# (s+1 for hop s) a first-order lane uses.
+N2V_TAG_BASE = 1 << 20
+# second-order lane uniforms drawn in one pass: at most this many
+_N2V_DRAWS_PER_PASS = 1 << 22
 
 
 @dataclass(frozen=True)
@@ -81,16 +104,13 @@ _CAP = "unsupported sampler capability: "
 def check_capabilities(scfg: SamplerConfig, path: str,
                        lanes: Optional[LaneFeatures] = None, *,
                        sharded: bool = False,
-                       have_tables: bool = True) -> None:
+                       have_tables: bool = False) -> None:
     """Validate a (sampler config, path, lane features) combination.
 
     Refuses with the reference's ``ValueError`` and message wherever
     core/walk_engine.py::check_capabilities refuses. What the reference
-    runs and the port does not run yet raises ``NotImplementedError``:
-    alias tables (config or lane bias "table"), node2vec second-order
-    bias (config or lanes), and sharded walks. The port builds no alias
-    tables yet, so by default a table request is judged as if tables
-    were given (``have_tables=True``) and refused as not yet ported."""
+    runs and the port does not run yet, sharded walks and sharded
+    serving, raises ``NotImplementedError``."""
     if scfg.bias not in BIAS_CODES:
         raise ValueError(
             _CAP + f"unknown bias {scfg.bias!r} "
@@ -196,12 +216,6 @@ def check_capabilities(scfg: SamplerConfig, path: str,
         raise NotImplementedError(
             "sharded walks and sharded serving are not yet ported to "
             "PyTorch")
-    if scfg.bias == "table" or (lanes is not None and lanes.table):
-        raise NotImplementedError(
-            "bias='table' (alias tables) is not yet ported to PyTorch")
-    if use_n2v or (lanes is not None and lanes.second_order):
-        raise NotImplementedError(
-            "node2vec second-order bias is not yet ported to PyTorch")
 
 
 class WalkResult(NamedTuple):
@@ -234,9 +248,9 @@ class LaneParams(NamedTuple):
     """Per-lane sampler parameters of a coalesced batch (DESIGN.md §11),
     [W] tensors in walk order on the index's device. ``rid``/``wid`` drive
     the lane's RNG stream (see the module docstring); ``active`` marks
-    real lanes against bucket padding. ``n2v_p``/``n2v_q`` are the
-    second-order node2vec parameters (1.0 disables them), which the port
-    packs but does not run yet."""
+    real lanes against bucket padding. ``n2v_p``/``n2v_q`` (float32) are
+    the second-order node2vec parameters, 1.0 disabling them; they are
+    read only by a run with ``second_order=True``."""
 
     start_node: torch.Tensor   # int32[W] start node (start_mode="nodes")
     bias: torch.Tensor         # int32[W] hop-bias code (samplers.BIAS_CODES)
@@ -354,10 +368,10 @@ def start_walks(index: TemporalIndex, wcfg: WalkConfig, scfg: SamplerConfig,
 
 
 def _segment_cutoff(index: TemporalIndex, s_node, s_time):
-    """(b, c) for lanes grouped by (node, time): Γ_t(v) = [c, b). Segment
-    heads are re-derived from the order — contiguous equal (node, time)
-    runs share the cutoff computed at their head — so any permutation is
-    correct."""
+    """(a, b, c) for lanes grouped by (node, time): the region [a, b) and
+    Γ_t(v) = [c, b). Segment heads are re-derived from the order —
+    contiguous equal (node, time) runs share the cutoff computed at their
+    head — so any permutation is correct."""
     W = s_node.shape[0]
     pad = s_node.new_full((1,), -2)
     head = (s_node != torch.cat([pad, s_node[:-1]])) \
@@ -367,7 +381,7 @@ def _segment_cutoff(index: TemporalIndex, s_node, s_time):
     c_head = temporal_cutoff(index, a, b, s_time)
     c = torch.zeros(W, dtype=torch.int32, device=s_node.device).scatter_reduce(
         0, seg_id.long(), torch.where(head, c_head, 0), "amax")
-    return b, c[seg_id.long()]
+    return a, b, c[seg_id.long()]
 
 
 def _lexsort_prologue(index: TemporalIndex, carry: _Carry):
@@ -441,20 +455,112 @@ def _draws(hop_key, order: torch.Tensor) -> torch.Tensor:
         order.long()]
 
 
-def _draw_pick(index, scfg, hop_key, c, b, s_node, order, lane_bias=None,
-               lane_u=None):
+def _f32(x: float) -> float:
+    """A Python float rounded to float32 (the reference's weakly typed
+    scalar against a float32 array)."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+def _pick_config(index, scfg, tables, a, c, b, u, node):
+    """First-order pick under the config bias."""
+    if scfg.bias == "table":
+        return alias_pick(tables, a, c, b, u, radix=scfg.table_radix,
+                          degree_cap=scfg.table_degree_cap)
+    return pick_in_neighborhood(index, scfg, c, b, u, node)
+
+
+def _pick_lane_codes(index, scfg, tables, code, a, c, b, u):
+    """First-order pick under per-lane bias codes: the closed forms, with
+    the alias draw overlaid on lanes coded "table" when ``tables`` are
+    given — elementwise in (code, u, region), so a lane's pick does not
+    depend on its batch."""
+    k = pick_in_neighborhood_lanes(index, code, c, b, u)
+    if tables is not None:
+        k_tab = alias_pick(tables, a, c, b, u, radix=scfg.table_radix,
+                           degree_cap=scfg.table_degree_cap)
+        k = torch.where(code == BIAS_TABLE, k_tab, k)
+    return k
+
+
+def _rounds(x):
+    """A per-lane tensor repeated once per rejection round (round-major),
+    None kept."""
+    return None if x is None else x.repeat(N2V_ROUNDS)
+
+
+def _proposals(index, pick, beta_of, prev, us, beta_max):
+    """Every rejection round at once: the proposals ``pick(us[r, 0])``
+    and whether each is accepted (``us[r, 1]·β_max ≤ β(candidate)``, or
+    the lane has no previous node), both [N2V_ROUNDS, W]. ``pick`` and
+    ``beta_of`` take the rounds' inputs stacked round-major ([R·W]); the
+    arithmetic of each element is that of a round on its own."""
+    R, _, W = us.shape
+    k = pick(us[:, 0].reshape(-1))
+    beta = beta_of(index.ns_dst[k.clamp(0, index.edge_capacity - 1).long()])
+    ok = (us[:, 1] * beta_max <= beta.view(R, W)) | (prev < 0)
+    return k.view(R, W), ok
+
+
+def _rejection(index, pick, beta_of, prev, us, beta_max):
+    """Node2vec rejection over the first-order proposal stream: the first
+    accepted round's proposal, the round-0 one when every round rejects
+    (the reference's round loop, taken over all rounds at once)."""
+    k, ok = _proposals(index, pick, beta_of, prev, us, beta_max)
+    first = ok.to(torch.int8).argmax(0, keepdim=True)
+    return torch.where(ok.any(0), k.gather(0, first)[0], k[0])
+
+
+def _lane_second_order(index, scfg, tables, lane_bias, a, c, b, prev,
+                       k_plain, n2v):
+    """Per-lane node2vec rejection. ``n2v = (p, q, us2)`` with us2
+    [N2V_ROUNDS, 2, W] from the N2V_TAG_BASE substreams, in the caller's
+    lane layout; lanes with p == q == 1 keep ``k_plain``."""
+    p, q, us2 = n2v
+    k_rej = _rejection(
+        index,
+        lambda u: _pick_lane_codes(index, scfg, tables, _rounds(lane_bias),
+                                   _rounds(a), _rounds(c), _rounds(b), u),
+        lambda cand: node2vec_beta_lanes(index, _rounds(prev), cand,
+                                         _rounds(p), _rounds(q)),
+        prev, us2, node2vec_max_beta_lanes(p, q))
+    return torch.where((p != 1.0) | (q != 1.0), k_rej, k_plain)
+
+
+def _draw_pick(index, scfg, hop_key, a, c, b, s_node, s_prev, order,
+               lane_bias=None, lane_u=None, tables=None, lane_n2v=None):
     """Positions k ∈ [c, b) for lanes in ``order`` (lane -> walk id, None
-    for walk order): the config bias over the hop's uniforms, or, with
-    ``lane_bias``/``lane_u`` (walk-order arrays), each lane's own code and
-    draw."""
-    if lane_u is None:
-        u = (prng.uniform(hop_key, (s_node.shape[0],), s_node.device)
-             if order is None else _draws(hop_key, order))
-        return pick_in_neighborhood(index, scfg, c, b, u, s_node)
-    if order is not None:
-        o = order.long()
-        lane_bias, lane_u = lane_bias[o], lane_u[o]
-    return pick_in_neighborhood_lanes(index, lane_bias, c, b, lane_u)
+    for walk order). The config bias draws the hop's uniforms (node2vec:
+    ``uniform(hop_key, (N2V_ROUNDS, 2, W))``) in walk order and reads them
+    through ``order``; with ``lane_bias``/``lane_u`` (walk-order arrays)
+    each lane uses its own code and draw, and ``lane_n2v`` its own
+    second-order parameters and uniforms."""
+    o = None if order is None else order.long()
+    if lane_u is not None:
+        if o is not None:
+            lane_bias, lane_u = lane_bias[o], lane_u[o]
+        k = _pick_lane_codes(index, scfg, tables, lane_bias, a, c, b, lane_u)
+        if lane_n2v is not None:
+            p, q, us2 = lane_n2v
+            if o is not None:
+                p, q, us2 = p[o], q[o], us2[:, :, o]
+            k = _lane_second_order(index, scfg, tables, lane_bias, a, c, b,
+                                   s_prev, k, (p, q, us2))
+        return k
+    W = s_node.shape[0]
+    dev = s_node.device
+    if scfg.node2vec_p == 1.0 and scfg.node2vec_q == 1.0:
+        u = prng.uniform(hop_key, (W,), dev)
+        return _pick_config(index, scfg, tables, a, c, b,
+                            u if o is None else u[o], s_node)
+    p, q = scfg.node2vec_p, scfg.node2vec_q
+    us = prng.uniform(hop_key, (N2V_ROUNDS, 2, W), dev)
+    return _rejection(
+        index,
+        lambda u: _pick_config(index, scfg, tables, _rounds(a), _rounds(c),
+                               _rounds(b), u, _rounds(s_node)),
+        lambda cand: node2vec_beta(index, _rounds(s_prev), cand, p, q),
+        s_prev, us if o is None else us[:, :, o],
+        _f32(node2vec_max_beta(p, q)))
 
 
 def _limit(has_next, lane_limit, order=None):
@@ -473,24 +579,25 @@ def _gather(index: TemporalIndex, k: torch.Tensor):
 
 def _hop_fullwalk(index, scfg, sched_cfg, carry: _Carry, step: int,
                   hop_key, lane_bias=None, lane_u=None,
-                  lane_limit=None) -> _Carry:
+                  lane_limit=None, tables=None, lane_n2v=None) -> _Carry:
     """Every walk advances on its own, in walk order."""
     a, b = node_range(index, carry.cur_node)
     c = temporal_cutoff(index, a, b, carry.cur_time)
-    k = _draw_pick(index, scfg, hop_key, c, b, carry.cur_node, None,
-                   lane_bias, lane_u)
+    k = _draw_pick(index, scfg, hop_key, a, c, b, carry.cur_node,
+                   carry.prev_node, None, lane_bias, lane_u, tables,
+                   lane_n2v)
     return _advance(carry, step, *_gather(index, k),
                     _limit(carry.alive & (b - c > 0), lane_limit))
 
 
 def _hop_grouped(index, scfg, sched_cfg, carry: _Carry, step: int,
                  hop_key, lane_bias=None, lane_u=None,
-                 lane_limit=None) -> _Carry:
+                 lane_limit=None, tables=None, lane_n2v=None) -> _Carry:
     """Fresh stable sort by (node, time) + inverse, shared cutoffs."""
-    perm, s_node, s_time, _, s_alive = _lexsort_prologue(index, carry)
-    b, c = _segment_cutoff(index, s_node, s_time)
-    k = _draw_pick(index, scfg, hop_key, c, b, s_node, perm, lane_bias,
-                   lane_u)
+    perm, s_node, s_time, s_prev, s_alive = _lexsort_prologue(index, carry)
+    a, b, c = _segment_cutoff(index, s_node, s_time)
+    k = _draw_pick(index, scfg, hop_key, a, c, b, s_node, s_prev, perm,
+                   lane_bias, lane_u, tables, lane_n2v)
     nn, nt = _gather(index, k)
     return _advance(carry, step, *_unsort(
         perm, nn, nt, _limit(s_alive & (b - c > 0), lane_limit, perm)))
@@ -498,13 +605,14 @@ def _hop_grouped(index, scfg, sched_cfg, carry: _Carry, step: int,
 
 def _hop_grouped_bucket(index, scfg, sched_cfg, carry: _Carry, step: int,
                         hop_key, lane_bias=None, lane_u=None,
-                        lane_limit=None) -> _Carry:
+                        lane_limit=None, tables=None,
+                        lane_n2v=None) -> _Carry:
     """Carried bucket regroup, shared cutoffs (the reference's default)."""
     lane, s_node, s_time, s_prev, s_alive = _bucket_prologue(
         index, sched_cfg, carry)
-    b, c = _segment_cutoff(index, s_node, s_time)
-    k = _draw_pick(index, scfg, hop_key, c, b, s_node, lane, lane_bias,
-                   lane_u)
+    a, b, c = _segment_cutoff(index, s_node, s_time)
+    k = _draw_pick(index, scfg, hop_key, a, c, b, s_node, s_prev, lane,
+                   lane_bias, lane_u, tables, lane_n2v)
     nn, nt = _gather(index, k)
     return _advance_lanes(carry, lane, step, s_node, s_time, s_prev, nn, nt,
                           _limit(s_alive & (b - c > 0), lane_limit, lane))
@@ -597,15 +705,37 @@ def _check_buffers(buffers: WalkBuffers, wcfg: WalkConfig,
 
 def _check_lane_support(wcfg: WalkConfig, scfg: SamplerConfig,
                         sched_cfg: SchedulerConfig, lanes: LaneParams,
+                        tables: Optional[AliasTables] = None,
                         second_order: bool = False) -> None:
     """Validation of a per-lane batch (DESIGN.md §11): shapes here,
     everything capability-shaped through ``check_capabilities``."""
-    check_capabilities(scfg, sched_cfg.path,
-                       LaneFeatures(second_order=second_order))
+    check_capabilities(
+        scfg, sched_cfg.path,
+        LaneFeatures(table=tables is not None, second_order=second_order),
+        have_tables=tables is not None)
     if lanes.start_node.shape[0] != wcfg.num_walks:
         raise ValueError(
             f"lane arrays have {lanes.start_node.shape[0]} lanes but "
             f"wcfg.num_walks={wcfg.num_walks}")
+    if second_order and (lanes.n2v_p is None or lanes.n2v_q is None):
+        raise ValueError(
+            "second_order=True requires LaneParams.n2v_p/n2v_q arrays "
+            "(the coalescer packs them; see serve/coalescer.py)")
+
+
+def _n2v_lane_draws(lane_keys: torch.Tensor, hops: int):
+    """Hop s's second-order uniforms [N2V_ROUNDS, 2, W], from tags
+    N2V_TAG_BASE + s·2·N2V_ROUNDS + 2r + j, drawn a block of hops per
+    pass (at most ``_N2V_DRAWS_PER_PASS`` uniforms)."""
+    W = lane_keys.shape[0]
+    per = 2 * N2V_ROUNDS
+    block = max(1, _N2V_DRAWS_PER_PASS // (per * W))
+    for s0 in range(0, hops, block):
+        n = min(block, hops - s0)
+        tags = N2V_TAG_BASE + s0 * per + torch.arange(
+            n * per, device=lane_keys.device)[:, None]
+        us = _lane_uniform(lane_keys, tags).reshape(n, N2V_ROUNDS, 2, W)
+        yield from us
 
 
 def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
@@ -613,12 +743,17 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
                          collect_stats: bool = False,
                          buffers: Optional[WalkBuffers] = None,
                          lanes: Optional[LaneParams] = None,
+                         tables: Optional[AliasTables] = None,
                          second_order: bool = False) -> WalkResult:
-    """Shared body of every walk entry point."""
+    """Shared body of every walk entry point. ``tables`` threads the
+    window's alias tables (config bias "table" or lanes coded "table");
+    ``second_order`` runs the per-lane node2vec rejection."""
     if lanes is not None:
-        _check_lane_support(wcfg, scfg, sched_cfg, lanes, second_order)
+        _check_lane_support(wcfg, scfg, sched_cfg, lanes, tables,
+                            second_order)
     else:
-        check_capabilities(scfg, sched_cfg.path)
+        check_capabilities(scfg, sched_cfg.path,
+                           have_tables=tables is not None)
     if sched_cfg.regroup not in ("bucket", "lexsort"):
         raise ValueError(f"unknown regroup {sched_cfg.regroup!r}")
     try:
@@ -640,11 +775,17 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
                         lanes=lanes, lane_keys=lane_keys)
     edges = wcfg.start_mode == "edges"
     hops = wcfg.max_length - 1 if edges else wcfg.max_length
+    # tables reach the hop only where a draw reads them (the tiled and
+    # fused hops take none: check_capabilities refuses them there)
+    extra = {}
+    if tables is not None and (scfg.bias == "table" or lanes is not None):
+        extra["tables"] = tables
     if lanes is not None and hops > 0:
         # every hop's lane draws at once: tag s+1 for hop s (tag 0 was the
         # start draw), one pass over [hops, W] instead of one per hop
         lane_us = _lane_uniform(lane_keys, torch.arange(
             1, hops + 1, device=lane_keys.device)[:, None])
+        n2v_us = _n2v_lane_draws(lane_keys, hops) if second_order else None
     stats = []
     for step in range(hops):
         write_pos = step + int(edges)
@@ -653,13 +794,15 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
                                               carry.alive, sched_cfg))
         if lanes is None:
             carry = hop(index, scfg, sched_cfg, carry, write_pos,
-                        prng.fold_in(walk_key, step))
+                        prng.fold_in(walk_key, step), **extra)
         else:
+            if n2v_us is not None:
+                extra["lane_n2v"] = (lanes.n2v_p, lanes.n2v_q, next(n2v_us))
             # column write_pos+1 is written only within the lane's own
             # max_len
             carry = hop(index, scfg, sched_cfg, carry, write_pos, None,
                         lane_bias=lanes.bias, lane_u=lane_us[step],
-                        lane_limit=(write_pos + 1) <= lanes.max_len)
+                        lane_limit=(write_pos + 1) <= lanes.max_len, **extra)
     if collect_stats:
         stats = torch.stack(stats) if stats else torch.zeros(
             (0, sched.NUM_STATS), dtype=torch.float32,
@@ -672,34 +815,42 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
 def generate_walks(index: TemporalIndex, key, wcfg: WalkConfig,
                    scfg: SamplerConfig, sched_cfg: SchedulerConfig,
                    collect_stats: bool = False,
-                   buffers: Optional[WalkBuffers] = None) -> WalkResult:
+                   buffers: Optional[WalkBuffers] = None,
+                   tables: Optional[AliasTables] = None) -> WalkResult:
     """Generate ``wcfg.num_walks`` temporal walks of ≤ ``max_length`` hops
     on the index's device. ``key`` is a ``repro_torch.random`` key. With
     ``collect_stats``, ``WalkResult.stats`` holds ``dispatch_stats`` of
     every hop, float32[hops, NUM_STATS]. With ``buffers``, the walks are
-    written into them and they are the result's ``nodes``/``times``."""
+    written into them and they are the result's ``nodes``/``times``.
+    ``tables`` (the window's ``AliasTables``) serves ``bias="table"``."""
     return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
                                 collect_stats=collect_stats,
-                                buffers=buffers)
+                                buffers=buffers, tables=tables)
 
 
 def generate_walks_donated(index: TemporalIndex, key, buffers: WalkBuffers,
                            wcfg: WalkConfig, scfg: SamplerConfig,
-                           sched_cfg: SchedulerConfig) -> WalkResult:
+                           sched_cfg: SchedulerConfig,
+                           tables: Optional[AliasTables] = None
+                           ) -> WalkResult:
     """Steady-state form of ``generate_walks`` (DESIGN.md §10): the walks
     of this round are written into the previous round's ``buffers``,
     which the caller gives up."""
     return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
-                                buffers=buffers)
+                                buffers=buffers, tables=tables)
 
 
 def generate_walk_lanes(index: TemporalIndex, key, lanes: LaneParams,
                         wcfg: WalkConfig, scfg: SamplerConfig,
                         sched_cfg: SchedulerConfig,
+                        buffers: Optional[WalkBuffers] = None,
+                        tables: Optional[AliasTables] = None,
                         second_order: bool = False) -> WalkResult:
     """A coalesced heterogeneous batch (DESIGN.md §11): one fixed-shape
     run of ``wcfg.num_walks`` lanes with bias, maximum length and RNG
     seed per lane, on paths ``fullwalk``, ``grouped`` and ``fused``.
-    ``second_order`` (node2vec lanes) is not yet ported."""
+    ``tables`` serves lanes coded "table" and ``second_order`` the lanes'
+    node2vec (p, q), both on ``fullwalk`` and ``grouped``."""
     return _generate_walks_impl(index, key, wcfg, scfg, sched_cfg,
-                                lanes=lanes, second_order=second_order)
+                                buffers=buffers, lanes=lanes, tables=tables,
+                                second_order=second_order)

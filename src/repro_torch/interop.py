@@ -5,13 +5,15 @@ The functions take the reference's ``EdgeStore``, ``TemporalIndex``,
 are numpy arrays (or anything ``numpy.asarray`` accepts), and a key as two
 uint32 words. Tests use them to feed the reference's own index — its
 ``pexp``/``plin`` among it — into the port, so weight-mode walks can be
-compared bit for bit, and to run one packed lane batch in both packages.
+compared bit for bit, to start the port from the reference's window and
+alias tables, and to run one packed lane batch in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.alias import AliasTables
 from repro_torch.core.edge_store import EdgeStore
 from repro_torch.core.temporal_index import TemporalIndex
 from repro_torch.core.walk_engine import LaneParams
@@ -54,11 +56,27 @@ def index_from_ref(index, device=None) -> TemporalIndex:
     return TemporalIndex(**fields)
 
 
-def window_from_ref(state, device=None) -> WindowState:
+def tables_from_ref(tables, device=None) -> AliasTables:
+    """The port's ``AliasTables`` from the reference's (same fields)."""
     device = resolve_device(device)
+    return AliasTables(
+        thresh=_tensor(_get(tables, "thresh"), np.int32, device),
+        partner=_tensor(_get(tables, "partner"), np.int32, device),
+        ptab=_tensor(_get(tables, "ptab"), np.float32, device),
+        rebuilt=_tensor(_get(tables, "rebuilt"), np.int32, device))
+
+
+def window_from_ref(state, device=None) -> WindowState:
+    """The port's ``WindowState`` from the reference's, its alias tables
+    included when it has them."""
+    device = resolve_device(device)
+    tables = (state.get("tables") if isinstance(state, dict)
+              else getattr(state, "tables", None))
     return WindowState(index=index_from_ref(_get(state, "index"), device),
                        **{f: _tensor(_get(state, f), np.int32, device)
-                          for f in _COUNTERS})
+                          for f in _COUNTERS},
+                       tables=None if tables is None
+                       else tables_from_ref(tables, device))
 
 
 def lanes_from_ref(lanes, device=None) -> LaneParams:

@@ -11,8 +11,10 @@ for one device.
   backpressure + drop accounting, FIFO/EDF coalescing, p50/p99 latency
   and walks/s stats, and the async in-flight ring (``tick``/``pump``).
 
-Sharded serving (the reference's ``ShardedSnapshotManager``,
-``lane_owners``) is not yet ported.
+Alias-table (bias "table") and second-order (node2vec) queries run on
+the grouped and fullwalk paths. Sharded serving (the reference's
+``ShardedSnapshotManager``, ``PinnedShardedSnapshot``, ``lane_owners``)
+is not yet ported.
 """
 from repro_torch.serve.coalescer import (
     LaneSlice,

@@ -30,9 +30,13 @@ folds by (query seed, walk id, step) and the per-lane bias/length
 dispatch is pure per lane.
 
 On a CUDA device the batches run on the fused path through the
-``fused_hop`` kernel when ``SchedulerConfig.path == "fused"``. Alias-table
-and node2vec queries, and sharded serving (``num_shards``/``mesh``), are
-not yet ported: they raise ``NotImplementedError``.
+``fused_hop`` kernel when ``SchedulerConfig.path == "fused"``. A config
+with ``bias="table"`` or a ``table_weight`` keeps alias tables in the
+snapshot buffers (rebuilt incrementally by each ``begin_ingest``), so
+table-coded queries draw from them; they and second-order (node2vec)
+queries run on the ``grouped`` and ``fullwalk`` paths, as in the
+reference. Sharded serving (``num_shards``/``mesh``) is not yet ported:
+it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.configs.base import EngineConfig, ServeConfig, WalkConfig
+from repro_torch.core.alias import spec_from_sampler
 from repro_torch.core.edge_store import make_batch
 from repro_torch.core.walk_engine import (
     LaneFeatures,
@@ -182,7 +187,9 @@ class ServeStats:
 class WalkService:
     """Walk-query serving over a snapshot double-buffered window on one
     device (CUDA unless ``device`` names another, or the device of a
-    ``state`` given).
+    ``state`` given). ``probes`` is the reference's switch for the sharded
+    serving probe matrix (``obs.flush_serve_probes``); a single-device
+    service has none, as in the reference.
 
     The service owns a ``SnapshotManager`` (feed it edges via ``ingest`` /
     ``begin_ingest`` + ``publish``) and a fixed-capacity queue of pending
@@ -197,7 +204,7 @@ class WalkService:
                  batch_capacity: int = 8192, *,
                  mesh=None, num_shards: int = 0, placement=None,
                  registry: Optional[MetricsRegistry] = None,
-                 device=None):
+                 probes: bool = True, device=None):
         if list(serve_cfg.lane_buckets) != sorted(serve_cfg.lane_buckets) \
                 or list(serve_cfg.length_buckets) != sorted(
                     serve_cfg.length_buckets):
@@ -218,15 +225,18 @@ class WalkService:
         # bias codes, so path="fused" serves heterogeneous batches.
         self.sched_cfg = (dataclasses.replace(cfg.scheduler, path="grouped")
                           if cfg.scheduler.path == "tiled" else cfg.scheduler)
+        # bias='table' (or a table_weight) opts the snapshot buffers into
+        # alias-table maintenance
+        self._table = spec_from_sampler(cfg.sampler)
+        self._rebuilt_seen = 0
         # every serving batch is a per-lane batch: validate the config
-        # against lane capabilities up front. Alias tables (bias='table'
-        # or a table_weight) and sharded serving are not yet ported.
+        # against lane capabilities up front. Sharded serving is not yet
+        # ported.
         check_capabilities(cfg.sampler, self.sched_cfg.path, LaneFeatures(),
                            sharded=mesh is not None or (
-                               num_shards or serve_cfg.num_shards) > 0)
-        if cfg.sampler.table_weight is not None:
-            raise NotImplementedError(
-                "alias tables (table_weight) are not yet ported to PyTorch")
+                               num_shards or serve_cfg.num_shards) > 0,
+                           have_tables=self._table is not None)
+        self.probes = probes
         if placement is not None:
             raise ValueError("placement= requires sharded serving "
                              "(num_shards > 0 or mesh=)")
@@ -238,8 +248,10 @@ class WalkService:
         self.snapshots = SnapshotManager(
             state if state is not None else init_window(
                 cfg.window.edge_capacity, cfg.window.node_capacity,
-                int(cfg.window.duration), device=self.device),
-            cfg.window.node_capacity, registry=self.registry)
+                int(cfg.window.duration), table=self._table,
+                device=self.device),
+            cfg.window.node_capacity, registry=self.registry,
+            table=self._table)
         # NOT split per call: lane RNG identity lives in (seed, walk, step)
         # folds, and solo/coalesced bit-equality needs a stable base
         self.base_key = prng.PRNGKey(cfg.seed)
@@ -273,6 +285,15 @@ class WalkService:
             self.snapshots.publish()
         self.registry.set_gauge("snapshot_version", self.snapshots.version,
                                 help="published serving snapshot version")
+        if self.snapshots.current.tables is not None:
+            # incremental maintenance work per advance (publish has
+            # already waited for the ingest)
+            rebuilt = int(self.snapshots.current.tables.rebuilt)
+            self.registry.inc("alias_nodes_rebuilt_total",
+                              max(0, rebuilt - self._rebuilt_seen),
+                              help="alias-table node rebuilds performed by "
+                                   "incremental window maintenance")
+            self._rebuilt_seen = rebuilt
 
     # ------------------------------------------------------------------
     # Query side
@@ -294,14 +315,15 @@ class WalkService:
         ``strict=False`` and raises ``QueueFull`` with ``strict=True``.
         Queued queries past their deadline are evicted first.
 
-        Table-bias and second-order queries are validated here, always by
-        a raise; both are not yet ported.
+        Table-bias and second-order queries are validated against the
+        service's capabilities here, always by a raise.
         """
         if query.bias == "table" or query.second_order:
             check_capabilities(
                 self.cfg.sampler, self.sched_cfg.path,
                 LaneFeatures(table=query.bias == "table",
-                             second_order=query.second_order))
+                             second_order=query.second_order),
+                have_tables=self.snapshots.current.tables is not None)
         now = time.perf_counter()
         self._evict_expired(now)
         if self._oversize(query):
@@ -420,19 +442,25 @@ class WalkService:
         return self._form_batch(time.perf_counter(), force=True)
 
     def _launch_lanes(self, params: LaneParams, wcfg: WalkConfig, pin,
+                      use_tables: bool = False,
                       second_order: bool = False) -> WalkResult:
         """Enqueue one packed lane batch against the pinned snapshot
-        without waiting for it."""
-        return generate_walk_lanes(pin.state.index, self.base_key, params,
-                                   wcfg, self.cfg.sampler, self.sched_cfg,
+        without waiting for it. ``use_tables``/``second_order`` say whether
+        a lane of the batch is coded "table" / has (p, q) != (1, 1); a
+        batch without such lanes runs the first-order program."""
+        snap = pin.state
+        return generate_walk_lanes(snap.index, self.base_key, params, wcfg,
+                                   self.cfg.sampler, self.sched_cfg,
+                                   tables=snap.tables if use_tables else None,
                                    second_order=second_order)
 
     def _dispatch_lanes(self, params: LaneParams, wcfg: WalkConfig,
+                        use_tables: bool = False,
                         second_order: bool = False):
         """Blocking form (the solo path): launch one lane batch against the
         current snapshot and bring its arrays to the host."""
         return result_arrays(self._launch_lanes(
-            params, wcfg, self.snapshots.acquire(),
+            params, wcfg, self.snapshots.acquire(), use_tables=use_tables,
             second_order=second_order))
 
     # ------------------------------------------------------------------
@@ -458,6 +486,7 @@ class WalkService:
         with span("dispatch", reg):
             raw = self._launch_lanes(
                 params, wcfg, pin,
+                use_tables=any(q.bias == "table" for q in queries),
                 second_order=any(q.second_order for q in queries))
             ready = None
             if self.device.type == "cuda":
@@ -609,6 +638,7 @@ class WalkService:
         t0 = time.perf_counter()
         out = slice_result(
             *self._dispatch_lanes(params, wcfg,
+                                  use_tables=query.bias == "table",
                                   second_order=query.second_order),
             sl, query)
         elapsed = time.perf_counter() - t0

@@ -18,6 +18,12 @@ Ingest and walks share one stream: a walk batch launched between
 ``begin_ingest`` and ``publish`` runs on the device after the ingest
 kernels, while the host goes on coalescing. Two windows are alive at the
 swap; the old one is freed when the last batch pinned to it is harvested.
+
+With ``table=`` (a ``TableSpec``) every ``begin_ingest`` also maintains
+the window's alias tables (only the nodes whose region changed are
+rebuilt), so a published snapshot carries tables consistent with its
+window. The build reads nothing back from the device, so it stays
+enqueued like the rest of the ingest.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.alias import TableSpec
 from repro_torch.core.edge_store import EdgeBatch
 from repro_torch.core.window import WindowState, ingest
 from repro_torch.obs.registry import MetricsRegistry, get_registry
@@ -43,9 +50,13 @@ class SnapshotManager:
     """Double-buffered ``WindowState`` for the serving layer."""
 
     def __init__(self, state: WindowState, node_capacity: int,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 table: Optional[TableSpec] = None):
         self.current = state
         self.node_capacity = node_capacity
+        # fixed for the manager's life: incremental maintenance is valid
+        # only against tables built under the same spec
+        self.table = table
         self.registry = registry if registry is not None else get_registry()
         self.version = 0          # bumped at every publish
         self._next: Optional[WindowState] = None
@@ -60,7 +71,8 @@ class SnapshotManager:
         if self._next is not None:
             raise RuntimeError("an ingest is already in flight; publish() "
                                "or discard() it first")
-        self._next = ingest(self.current, batch, self.node_capacity)
+        self._next = ingest(self.current, batch, self.node_capacity,
+                            table=self.table)
         if self._next.index.ns_ts.device.type == "cuda":
             self._ready = torch.cuda.Event()
             self._ready.record()

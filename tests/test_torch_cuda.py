@@ -329,3 +329,74 @@ def test_served_batches_card_equal_cpu(card):
     assert hops > 80
     assert launches == dict(fused_hop=hops, weight_prefix=0,
                             walk_step_tiled=0)
+
+
+@pytest.mark.parametrize("weight", ["uniform", "linear", "exponential"])
+def test_alias_tables_card_equal_cpu(card, weight):
+    """Alias tables maintained through a replay with eviction on the card
+    equal the CPU's bit for bit (the fixed-order row sums and prefix scan,
+    and exp in float64 for the exponential weight), and so do the table
+    walks drawn from them; the weight_prefix kernel ran twice a batch."""
+    g = powerlaw_temporal_graph(512, 1 << 14, seed=6, t_max=100_000)
+    batches = list(chronological_batches(g, 3))
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 13,
+                            node_capacity=512),
+        sampler=SamplerConfig(mode="index", bias="table",
+                              table_weight=weight),
+        scheduler=SchedulerConfig(path="grouped"))
+    wcfg = WalkConfig(num_walks=512, max_length=12)
+    out = []
+    for d in ("cuda", "cpu"):
+        runtime.reset_launches()
+        eng = StreamingEngine(cfg, 1 << 13, device=d)
+        out.append((eng.replay_device(batches, wcfg, return_walks=True),
+                    eng.state.tables, dict(runtime.LAUNCHES)))
+    (card_run, card_tab, launches), (cpu_run, cpu_tab, _) = out
+    for f in ("thresh", "partner", "ptab", "rebuilt"):
+        assert torch.equal(getattr(card_tab, f).cpu(), getattr(cpu_tab, f))
+    for a, b in zip(card_run[1][:3], cpu_run[1][:3]):
+        np.testing.assert_array_equal(a, b)
+    assert launches["weight_prefix"] == 2 * (len(batches) + 1)
+    assert launches["fused_hop"] == launches["walk_step_tiled"] == 0
+
+
+@pytest.mark.parametrize("path", ["fullwalk", "grouped"])
+def test_node2vec_walks_card_equal_cpu(card, path):
+    """Config node2vec walks (table-biased and closed-form) and
+    second-order lanes on the card equal the CPU's."""
+    from repro_torch import random as prng
+    from repro_torch.core.alias import TableSpec, build_tables
+    from repro_torch.core.walk_engine import (LaneParams, generate_walk_lanes,
+                                              generate_walks)
+    rng = np.random.default_rng(8)
+    W = 1024
+    lanes = dict(
+        start_node=rng.integers(0, 256, W).astype(np.int32),
+        bias=rng.integers(0, 4, W).astype(np.int32),
+        start_bias=np.zeros(W, np.int32),
+        max_len=rng.integers(1, 16, W).astype(np.int32),
+        rid=rng.integers(0, 99, W).astype(np.int32),
+        wid=(np.arange(W) % 7).astype(np.int32),
+        active=np.ones(W, bool),
+        n2v_p=rng.choice([1.0, 0.5, 2.0], W).astype(np.float32),
+        n2v_q=rng.choice([1.0, 0.25, 4.0], W).astype(np.float32))
+    sched = SchedulerConfig(path=path)
+    wcfg = WalkConfig(num_walks=W, max_length=16)
+    out = []
+    for d in ("cuda", "cpu"):
+        idx = _index(d)
+        tables = build_tables(idx, TableSpec())
+        key = prng.PRNGKey(3)
+        res = [generate_walks(idx, key, wcfg, SamplerConfig(
+            mode="index", bias=bias, node2vec_p=0.5, node2vec_q=2.0), sched,
+            tables=tables) for bias in ("table", "exponential")]
+        params = LaneParams(**{k: torch.as_tensor(v, device=d)
+                               for k, v in lanes.items()})
+        res.append(generate_walk_lanes(idx, key, params, wcfg,
+                                       SamplerConfig(mode="index"), sched,
+                                       tables=tables, second_order=True))
+        out.append(res)
+    for a, b in zip(*out):
+        for f in ("nodes", "times", "lengths"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f))

@@ -12,8 +12,8 @@
 * ``generate_walks(..., buffers=)`` / ``generate_walks_donated`` equal a
   call without buffers and write the buffers they were given.
 * The capability matrix: every combination the reference refuses is
-  refused with its message; what it runs and the port does not yet
-  (alias tables, node2vec, sharded) raises ``NotImplementedError``.
+  refused with its message; what it runs the port runs, except sharded
+  walks, which raise ``NotImplementedError``.
 * ``StreamingEngine``'s host loop (``replay``, ``sample_walks``,
   ``sample_walks_donated``): the reference engine's walks, window counts
   and registry counters.
@@ -289,6 +289,9 @@ def _outcome(check, scfg, path, lanes, sharded, have_tables):
 
 
 def test_capability_matrix_matches_reference():
+    """Every combination, the default ``have_tables`` included: the port
+    runs or refuses (same message) as the reference does; only sharded
+    combinations the reference runs are "not yet ported"."""
     counts = {}
     for mode, bias, path, lanes, sharded, have_tables, n2v in _sweep():
         j_lanes = None if lanes is None else jwe.LaneFeatures(*lanes)
@@ -305,14 +308,24 @@ def test_capability_matrix_matches_reference():
         if want == "refused":
             assert (got, got_msg) == (want, want_msg), combo
         else:
-            unported = (sharded or bias == "table" or n2v != 1.0
-                        or (lanes is not None and any(lanes)))
-            assert got == ("not yet ported" if unported else "runs"), combo
-            if unported:
+            assert got == ("not yet ported" if sharded else "runs"), combo
+            if sharded:
                 assert "not yet ported" in got_msg
         counts[got] = counts.get(got, 0) + 1
     assert sum(counts.values()) == 2 * 4 * 4 * 5 * 2 * 2 * 2
     assert counts["runs"] > 0 and counts["not yet ported"] > 0
+    # the default have_tables is the reference's (False): a table request
+    # without tables is refused with the reference's message
+    for scfg, lanes in ((dict(bias="table"), None), (dict(), (True, False))):
+        with pytest.raises(ValueError) as want:
+            jwe.check_capabilities(
+                jcfg.SamplerConfig(**scfg), "grouped",
+                None if lanes is None else jwe.LaneFeatures(*lanes))
+        with pytest.raises(ValueError) as got:
+            twe.check_capabilities(
+                tcfg.SamplerConfig(**scfg), "grouped",
+                None if lanes is None else twe.LaneFeatures(*lanes))
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

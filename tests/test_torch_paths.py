@@ -40,6 +40,7 @@ from repro.data.synthetic import chronological_batches, powerlaw_temporal_graph
 from repro_torch import interop
 from repro_torch import random as prng
 from repro_torch.configs import base as tcfg
+from repro_torch.core.alias import TableSpec, build_tables
 from repro_torch.core import scheduler as t_sched
 from repro_torch.core.edge_store import store_from_arrays
 from repro_torch.core.streaming import StreamingEngine
@@ -262,13 +263,17 @@ def test_refusals_match_reference(indexes, path, what):
         j_check_capabilities(jcfg.SamplerConfig(**kw), path,
                              have_tables=True)
     with pytest.raises(ValueError) as got:
-        check_capabilities(tcfg.SamplerConfig(**kw), path)
+        check_capabilities(tcfg.SamplerConfig(**kw), path,
+                           have_tables=True)
     assert str(got.value) == str(want.value)
+    tables = (build_tables(indexes[1], TableSpec()) if what == "table"
+              else None)
     with pytest.raises(ValueError, match=f"path='{path}' does not support"):
         generate_walks(indexes[1], prng.PRNGKey(0),
                        tcfg.WalkConfig(num_walks=64, max_length=4),
                        tcfg.SamplerConfig(**kw),
-                       tcfg.SchedulerConfig(path=path, **TILES))
+                       tcfg.SchedulerConfig(path=path, **TILES),
+                       tables=tables)
 
 
 def test_unknown_path_and_regroup_raise(indexes):

@@ -11,9 +11,12 @@
 * The policy cases of the reference's serving tests give the same drop
   accounting in both packages: backpressure, oversize, deadline eviction,
   and the in-flight ring bounded by ``max_inflight``.
+* Table-coded and second-order (node2vec) queries: the reference's
+  tickets on the grouped and fullwalk paths, with uniform and linear
+  table weights, coalesced == solo.
 * Refusals: the reference's ``ValueError`` where it refuses; what it runs
-  and the port does not yet (alias tables, node2vec, sharded serving)
-  raises ``NotImplementedError``.
+  and the port does not yet (sharded serving) raises
+  ``NotImplementedError``.
 """
 import dataclasses
 import time
@@ -453,24 +456,109 @@ def test_service_refusals():
                                                     max_length=4),
                             tcfg.SamplerConfig(mode="index"),
                             tcfg.SchedulerConfig(path="tiled"))
-    # what the reference runs and the port does not yet
+    # what the reference runs and the port does not yet: sharded serving
     not_yet = [
         lambda: tserve.WalkService(cfg, tcfg.ServeConfig(num_shards=2),
                                    **dev),
         lambda: tserve.WalkService(cfg, num_shards=2, **dev),
         lambda: tserve.WalkService(cfg, mesh=object(), **dev),
-        lambda: tserve.WalkService(dataclasses.replace(
-            cfg, sampler=tcfg.SamplerConfig(mode="index", bias="table")),
-            **dev),
-        lambda: tserve.WalkService(dataclasses.replace(
-            cfg, sampler=tcfg.SamplerConfig(
-                mode="index", table_weight="exponential")), **dev),
-        lambda: svc.submit(tserve.WalkQuery(start_nodes=(1,), n2v_p=2.0)),
-        lambda: svc.submit(tserve.WalkQuery(start_nodes=(1,), bias="table")),
-        lambda: svc.run_query_solo(tserve.WalkQuery(start_nodes=(1,),
-                                                    n2v_q=0.5)),
     ]
     for call in not_yet:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             call()
+    # alias tables and node2vec run: a table query is refused only where
+    # the window has no tables, with the reference's message
+    j_svc = jserve.WalkService(_engine_cfg(jcfg), registry=JMetricsRegistry())
+    with pytest.raises(ValueError) as want:
+        j_svc.submit(jserve.WalkQuery(start_nodes=(1,), bias="table"))
+    with pytest.raises(ValueError) as got:
+        svc.submit(tserve.WalkQuery(start_nodes=(1,), bias="table"))
+    assert str(got.value) == str(want.value)
+    for sampler in (tcfg.SamplerConfig(mode="index", bias="table"),
+                    tcfg.SamplerConfig(mode="index",
+                                       table_weight="exponential")):
+        tsvc = tserve.WalkService(dataclasses.replace(cfg, sampler=sampler),
+                                  **dev)
+        assert tsvc.snapshots.current.tables is not None
+        assert tsvc.submit(tserve.WalkQuery(start_nodes=(1,),
+                                            bias="table")) == 0
+    j, t = _services()
+    for q in (jserve.WalkQuery(start_nodes=(1, 5, 9), n2v_q=0.5, seed=3,
+                               max_length=6),
+              jserve.WalkQuery(start_nodes=(2, 7), n2v_p=2.0, seed=4,
+                               bias="linear", max_length=5)):
+        for a, b in zip(t.run_query_solo(_port_query(q)),
+                        j.run_query_solo(q)):
+            np.testing.assert_array_equal(a, b)
     assert svc.pending_count == 0
+
+
+# ---------------------------------------------------------------------------
+# Alias-table and second-order (node2vec) queries
+# ---------------------------------------------------------------------------
+
+
+def _table_queries(n=12):
+    """Table-coded, second-order, both, and closed-form queries in turn,
+    in both start modes (t_max 1,000 keeps every table sum exact)."""
+    pq = (0.5, 1.0, 2.0)
+    qs = []
+    for i in range(n):
+        kind = i % 4
+        kw = dict(max_length=2 + i % 6, seed=900 + 13 * i,
+                  bias="table" if kind in (0, 2) else BIASES[i % 3])
+        if kind in (1, 2):
+            kw.update(n2v_p=pq[i % 3], n2v_q=pq[(i + 1) % 3])
+            if kw["n2v_p"] == kw["n2v_q"] == 1.0:
+                kw["n2v_q"] = 2.0
+        if kind == 2:
+            qs.append(jserve.WalkQuery(num_walks=2 + i % 3,
+                                       start_mode="edges", **kw))
+        else:
+            qs.append(jserve.WalkQuery(
+                start_nodes=tuple((7 * i + 5 * j) % NC
+                                  for j in range(1 + i % 4)), **kw))
+    return qs
+
+
+@pytest.mark.parametrize("path", ["grouped", "fullwalk"])
+@pytest.mark.parametrize("weight", ["uniform", "linear"])
+def test_table_and_node2vec_tickets_match_reference(weight, path):
+    g = powerlaw_temporal_graph(100, 4000, seed=12, t_max=1000)
+    stream = list(chronological_batches(g, 4))
+    svcs = []
+    for pkg, srv, reg, dev in ((jcfg, jserve, JMetricsRegistry, {}),
+                               (tcfg, tserve, MetricsRegistry,
+                                dict(device="cpu"))):
+        cfg = dataclasses.replace(
+            _engine_cfg(pkg, path),
+            sampler=pkg.SamplerConfig(mode="index", table_weight=weight))
+        svc = srv.WalkService(cfg, pkg.ServeConfig(max_inflight=8, **SERVE),
+                              registry=reg(), **dev)
+        for b in stream[:3]:
+            svc.ingest(*b)
+        svcs.append(svc)
+    j, t = svcs
+    queries = _table_queries()
+    want, _ = _drive(j, queries, stream[3])
+    got, _ = _drive(t, queries, stream[3], to_port=True)
+    assert sorted(got) == sorted(want)
+    for ticket, w in want.items():
+        g_ = got[ticket]
+        for f in ("nodes", "times", "lengths"):
+            np.testing.assert_array_equal(getattr(g_, f), getattr(w, f),
+                                          err_msg=f"{ticket} {f}")
+        assert g_.snapshot_version == w.snapshot_version
+    for f in ("thresh", "partner", "ptab", "rebuilt"):
+        np.testing.assert_array_equal(
+            getattr(t.snapshots.current.tables, f).numpy(),
+            np.asarray(getattr(j.snapshots.current.tables, f)), err_msg=f)
+    assert t.registry.value("alias_nodes_rebuilt_total") == \
+        j.registry.value("alias_nodes_rebuilt_total") > 0
+    # coalesced == solo, on the window every ticket of the last wave read
+    for ticket in sorted(got)[-4:]:
+        r = got[ticket]
+        for a, b in zip(t.run_query_solo(r.query),
+                        (r.nodes, r.times, r.lengths)):
+            np.testing.assert_array_equal(a, b)
+    assert any(r.lengths.max() > 2 for r in got.values())

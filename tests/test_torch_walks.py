@@ -9,6 +9,8 @@ vs the JAX reference, byte for byte.
   ``interop`` (the float prefixes are then the same bits).
 * A K=3 replay: ``ReplayStats`` and the final walks equal to the
   reference's ``StreamingEngine(..., probes=False).replay_device``.
+* The reference's capability refusals, and table-biased and node2vec
+  walks on the paths that run them.
 """
 import jax
 import numpy as np
@@ -187,24 +189,46 @@ def test_validate_walks_matches_reference(j_index, t_index):
         float(want_bad.hop_valid_frac))
 
 
-def test_capability_refusals(t_index):
+def test_capability_refusals(j_index, t_index):
+    """The reference's refusals; and alias tables and node2vec, refused on
+    the fused path, run on the grouped path and match the reference."""
+    from repro.core import alias as j_alias
+    from repro_torch.core import alias as t_alias
     key = prng.PRNGKey(0)
     wcfg = tcfg.WalkConfig(num_walks=64, max_length=4)
     fused = tcfg.SchedulerConfig(path="fused", **TILES)
+    tables = t_alias.build_tables(t_index, t_alias.TableSpec(
+        weight=t_alias.weight_uniform))
     with pytest.raises(ValueError, match="path='fused' does not support "
                                          "node2vec"):
         generate_walks(t_index, key, wcfg,
                        tcfg.SamplerConfig(node2vec_p=0.5), fused)
     with pytest.raises(ValueError, match="does not support bias='table'"):
         generate_walks(t_index, key, wcfg, tcfg.SamplerConfig(bias="table"),
-                       fused)
+                       fused, tables=tables)
+    with pytest.raises(ValueError, match="requires alias tables"):
+        generate_walks(t_index, key, wcfg, tcfg.SamplerConfig(bias="table"),
+                       tcfg.SchedulerConfig(path="grouped"))
     with pytest.raises(ValueError, match="unknown bias"):
         generate_walks(t_index, key, wcfg, tcfg.SamplerConfig(bias="zipf"),
                        fused)
-    # what stays unported: alias tables and node2vec on the paths that
-    # would serve them
-    grouped = tcfg.SchedulerConfig(path="grouped")
-    for scfg in (tcfg.SamplerConfig(bias="table"),
-                 tcfg.SamplerConfig(node2vec_p=0.5)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            generate_walks(t_index, key, wcfg, scfg, grouped)
+    # what ran "not yet ported" before: alias tables (uniform weights, so
+    # every sum is exact) and node2vec, on the paths that serve them
+    j_tables = j_alias.build_tables(j_index, j_alias.TableSpec(
+        weight=j_alias.weight_uniform))
+    jkey = jax.random.PRNGKey(5)
+    for scfg in (dict(bias="table", mode="index"),
+                 dict(bias="linear", mode="index", node2vec_p=0.5,
+                      node2vec_q=2.0)):
+        for path in ("fullwalk", "grouped"):
+            wc = dict(num_walks=256, max_length=6)
+            ref = j_generate_walks(
+                j_index, jkey, jcfg.WalkConfig(**wc),
+                jcfg.SamplerConfig(**scfg), jcfg.SchedulerConfig(path=path),
+                tables=j_tables)
+            got = generate_walks(
+                t_index, interop.key_from_words(jkey), tcfg.WalkConfig(**wc),
+                tcfg.SamplerConfig(**scfg), tcfg.SchedulerConfig(path=path),
+                tables=tables)
+            _assert_same_walks(ref, got)
+            assert int(got.lengths.max()) > 2
