@@ -17,8 +17,13 @@ tiled path, holds the seven first-order layouts to byte-identical walks
 at full width, runs weight mode at a reduced window, serves 1,024 walk
 queries through ``WalkService`` on the fused path against the main
 path's window while its next batch is ingested (checked against solo
-runs, the grouped path, a synchronous ring and the CPU), and prints one
-JSON line per phase. The last three lines are the kernels table, the card's
+runs, the grouped path, a synchronous ring and the CPU), replays the
+stream through the node-partitioned window with 4 shards on the card
+(``DistributedStreamingEngine``, byte-equal to the single-device replay
+across a live ``rebalance``), samples walk-axis-sharded walks on the
+fused, tiled and grouped paths, holds small sharded replays, reshards
+and the static walker to the CPU and to one shard, and prints one JSON
+line per phase. The last three lines are the kernels table, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 phase exits non-zero. With no CUDA device, or without the package next
 to it, it exits 2 and prints no result.
@@ -1568,6 +1573,416 @@ def probed_replay(cfg, batches, wcfg, unprobed_walks, unprobed_syncs,
                 hops_from_mean_len=hops_stats, launches=launches)
 
 
+# ---- scale-out: the node-partitioned window, D shards on one card ---------
+SHARDS = 4
+SHARD_WALK_PATHS = ("fused", "tiled", "grouped")
+
+
+def shard_config(args):
+    """The full-size sharded window's ShardConfig, scaled with the run's
+    sizes: range placement, shard 0 owning the lowest quarter of the node
+    ids (the Zipf hubs and every all-nodes start below 2^20), so its
+    capacities are those of the whole window and the whole walk batch."""
+    from repro_torch.configs.base import ShardConfig
+    return ShardConfig(num_shards=SHARDS,
+                       edge_capacity_per_shard=args.edge_capacity,
+                       exchange_capacity=args.edges_per_batch // SHARDS,
+                       walk_slots=args.walks,
+                       walk_bucket_capacity=args.walks, placement="range")
+
+
+def stats_equal(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(np.asarray(getattr(a, f)),
+                              np.asarray(getattr(b, f))) for f in a._fields)
+
+
+def walks_equal(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(np.asarray(getattr(a, f)),
+                              np.asarray(getattr(b, f)))
+               for f in ("nodes", "times", "lengths"))
+
+
+def hop_validity(index, walks, dev):
+    from repro_torch.core.validation import validate_walks
+    from repro_torch.core.walk_engine import WalkResult
+    import torch
+    return validate_walks(index, WalkResult(
+        *(torch.as_tensor(getattr(walks, f), device=dev)
+          for f in ("nodes", "times", "lengths"))))
+
+
+def profile_sharded_batch(engine, batch, wcfg) -> dict:
+    """One more batch of the sharded replay under torch.profiler, ingest
+    and walks traced apart: device kernels of each (the walks' per hop),
+    busy ms and the idle share of the batch; then one walk-migration
+    exchange alone at the replay's shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as prng
+    from repro_torch.core.distributed import exchange_by_owner
+    from repro_torch.core.edge_store import stack_batches
+    from repro_torch.distributed import streaming_shard as ss
+    cfg, mesh, D = engine.cfg, engine.mesh, engine.num_shards
+    st = stack_batches([batch], engine.batch_capacity, device=engine.home)
+    split = [x.reshape(D, engine.batch_slice) for x in st[:3]]
+    nc = cfg.window.node_capacity
+    out = {}
+
+    def ingest():
+        return ss._shard_ingest(
+            mesh, engine.state.window, *(ss._slices(mesh, x) for x in split),
+            ss._batch_valid(mesh, engine.batch_slice, st.count[0]),
+            placement=engine.placement,
+            exchange_capacity=cfg.shard.exchange_capacity,
+            node_capacity=nc, bias_scale=1.0)[0]
+
+    def walks(states):
+        return ss._shard_walks(
+            mesh, [w.index for w in states], prng.PRNGKey(7), wcfg,
+            cfg.sampler, placement=engine.placement,
+            walk_slots=cfg.shard.walk_slots,
+            walk_bucket_capacity=cfg.shard.walk_bucket_capacity)
+
+    states = ingest()
+    walks(states)
+    torch.cuda.synchronize()
+    busy, traced, kernels = {}, {}, {}
+    for name, fn in (("ingest", ingest), ("walks", lambda: walks(states))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced[name] = (time.perf_counter() - t0) * 1e3
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy[name] = busy_us(spans) / 1e3
+        kernels[name] = len(spans)
+    out.update(ingest_kernels=kernels["ingest"],
+               walk_kernels=kernels["walks"],
+               walk_kernels_per_hop=kernels["walks"] / wcfg.max_length,
+               ingest_busy_ms=busy["ingest"], walks_busy_ms=busy["walks"],
+               traced_wall_ms=traced["ingest"] + traced["walks"],
+               device_idle_share=1 - (busy["ingest"] + busy["walks"])
+               / (traced["ingest"] + traced["walks"]))
+    # one migration exchange at the walk slots' width: every slot live,
+    # owners drawn over the node range
+    Ws = cfg.shard.walk_slots
+    g = torch.Generator(device=engine.home).manual_seed(3)
+    node = [torch.randint(0, nc, (Ws,), generator=g, device=engine.home,
+                          dtype=torch.int32) for _ in range(D)]
+    wid = torch.arange(Ws, dtype=torch.int32, device=engine.home)
+    live = torch.ones(Ws, dtype=torch.bool, device=engine.home)
+
+    def exchange():
+        return exchange_by_owner(
+            mesh, cfg.shard.walk_bucket_capacity,
+            [engine.placement.owner(v) for v in node], [live] * D,
+            [(wid, v, v) for v in node], (-1, 0, 0))
+    out["exchange"] = profile_call(exchange)
+    del states
+    return out
+
+
+def sharded_walks(single, wcfg, dev) -> dict:
+    """``sample_walks_sharded`` with 4 shards on one card, on the window
+    after the first half of the stream, on the fused, tiled and grouped
+    paths from one key: equal bits, hop validity 1.0, and one hop-kernel
+    launch per shard and hop on the kernel paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import SchedulerConfig
+    from repro_torch.distributed.collectives import ShardGroup
+    from repro_torch.kernels import runtime
+    group = ShardGroup([dev] * SHARDS)
+    key0, cfg0 = single.key, single.cfg
+    runs, reading = {}, {}
+    try:
+        for path in SHARD_WALK_PATHS:
+            single.key = key0
+            single.cfg = dataclasses.replace(
+                cfg0, scheduler=SchedulerConfig(path=path, regroup="bucket"))
+            runtime.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = single.sample_walks_sharded(wcfg, mesh=group)
+            secs = time.perf_counter() - t0
+            launches = dict(runtime.LAUNCHES)
+            runs[path] = on_cpu(res)
+            rep = hop_validity(single.state.index, runs[path], dev)
+            reading[path] = dict(seconds=secs,
+                                 walks_per_s=wcfg.num_walks / secs,
+                                 hop_valid_frac=rep.hop_valid_frac,
+                                 num_hops=rep.num_hops, launches=launches)
+            require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+                    f"sharded walks ({path}): hop validity "
+                    f"{rep.hop_valid_frac}")
+    finally:
+        single.key, single.cfg = key0, cfg0
+    hops = wcfg.max_length           # all_nodes: every hop is a walk hop
+    for path in SHARD_WALK_PATHS[1:]:
+        require(walks_equal(runs[path], runs["fused"]),
+                f"sharded walks: {path} and fused differ")
+    want = {"fused": ("fused_hop", SHARDS * hops),
+            "tiled": ("walk_step_tiled", SHARDS * hops)}
+    for path, (name, n) in want.items():
+        got = reading[path]["launches"][name]
+        require(got == n, f"sharded walks ({path}): {name} launched {got} "
+                          f"times, not {SHARDS} shards x {hops} hops")
+    require(reading["grouped"]["launches"]["fused_hop"] == 0,
+            "sharded walks (grouped) launched the fused hop")
+    return dict(shards=SHARDS, walks=wcfg.num_walks,
+                max_length=wcfg.max_length, start_mode=wcfg.start_mode,
+                paths=reading, paths_equal=True)
+
+
+def sharded_path(args, cfg, batches, dev) -> dict:
+    """The node-partitioned window at full size, 4 shards on one card:
+    batches 1-12, ``rebalance()``, batches 13-24, each half byte-equal to
+    the single-device replay of the same batches, no drops, hop validity
+    1.0, ``weight_prefix`` launched twice per shard and ingest. Between
+    the halves, ``sharded_walks`` on the single-device window."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.distributed.streaming_shard import (
+        DistributedStreamingEngine)
+    from repro_torch.kernels import runtime
+    wcfg = WalkConfig(num_walks=args.walks, max_length=args.length,
+                      start_mode="all_nodes")
+    cfg_sh = dataclasses.replace(cfg, shard=shard_config(args))
+    B = args.edges_per_batch
+    half = len(batches) // 2
+    single = StreamingEngine(cfg, B, probes=False)
+    sharded = DistributedStreamingEngine(cfg_sh, B, devices=[dev] * SHARDS,
+                                         probes=False)
+    reading = dict(shards=SHARDS, shard_config=dataclasses.asdict(
+        cfg_sh.shard), batches=len(batches), walks=args.walks,
+        max_length=args.length, start_mode="all_nodes",
+        single_device_path=cfg.scheduler.path)
+    halves = {}
+    walks_reading = None
+    # the serving phases leave services in reference cycles: collect them
+    # so that the peak below is this phase's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading["allocated_at_start_gib"] = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    for h, part in (("first", batches[:half]), ("second", batches[half:])):
+        if h == "second":
+            walks_reading = sharded_walks(single, wcfg, dev)
+            loads_before = sharded.shard_loads()
+            runtime.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            placement = sharded.rebalance()
+            torch.cuda.synchronize()
+            rebalance = dict(
+                seconds=time.perf_counter() - t0,
+                launches=dict(runtime.LAUNCHES),
+                hot_nodes=list(placement.hot_nodes),
+                hot_owners=list(placement.hot_owners),
+                shard_loads_before=loads_before.tolist(),
+                shard_loads_after=sharded.shard_loads().tolist(),
+                exchange_drops=[int(x) for x in
+                                sharded.state.exchange_drops])
+            require(sum(rebalance["shard_loads_after"])
+                    == sum(rebalance["shard_loads_before"]),
+                    f"rebalance lost edges: {rebalance}")
+            require(rebalance["launches"]["weight_prefix"] == 2 * SHARDS,
+                    f"rebalance: {rebalance['launches']} weight_prefix "
+                    f"launches, not 2 per shard")
+            reading["rebalance"] = rebalance
+        t0 = time.perf_counter()
+        s_stats, s_walks, s_secs = single.replay_device(part, wcfg,
+                                                        return_walks=True)
+        runtime.reset_launches()
+        (d_stats, d_walks, secs), syncs, sites = count_syncs(
+            lambda: sharded.replay_device(part, wcfg))
+        launches = dict(runtime.LAUNCHES)
+        K = len(part)
+        rep = hop_validity(single.state.index, d_walks, dev)
+        stats = d_stats.replay
+        prior = halves["first"]["ingested_end"] if h == "second" else 0
+        hops_done = float(np.sum(args.walks * (
+            stats.mean_len.astype(np.float64) - 1.0)))
+        loads = sharded.shard_loads()
+        halves[h] = dict(
+            batches=K, seconds=secs, single_device_seconds=s_secs,
+            edges_per_s=(int(stats.ingested[-1]) - prior) / secs,
+            walks_per_s=K * args.walks / secs, hops_per_s=hops_done / secs,
+            hop_valid_frac=rep.hop_valid_frac, num_hops=rep.num_hops,
+            host_syncs=syncs, host_sync_sites=sites, launches=launches,
+            exchange_drops=int(d_stats.exchange_drops.sum()),
+            walk_drops=int(d_stats.walk_drops.sum()),
+            shard_loads=loads.tolist(),
+            edges_active=int(stats.edges_active[-1]),
+            ingested_end=int(stats.ingested[-1]),
+            walks_equal=walks_equal(d_walks, s_walks),
+            stats_equal=stats_equal(stats, s_stats))
+        require(halves[h]["stats_equal"],
+                f"sharded {h} half: ReplayStats differ from single-device")
+        require(halves[h]["walks_equal"],
+                f"sharded {h} half: walks differ from single-device")
+        require(halves[h]["exchange_drops"] == 0
+                and halves[h]["walk_drops"] == 0,
+                f"sharded {h} half: drops {halves[h]}")
+        require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+                f"sharded {h} half: hop validity {rep.hop_valid_frac}")
+        require(launches["weight_prefix"] == 2 * SHARDS * K,
+                f"sharded {h} half: weight_prefix launched "
+                f"{launches['weight_prefix']} times, not 2 x {SHARDS} x {K}")
+        require(int(loads.sum()) == int(stats.edges_active[-1]),
+                f"sharded {h} half: shard loads {loads} != edges_active")
+    reading["halves"] = halves
+    reading["sharded_walks"] = walks_reading
+    reading["profile"] = profile_sharded_batch(sharded, batches[-1], wcfg)
+    reading["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    reading["weight_prefix_launches"] = sum(
+        halves[h]["launches"]["weight_prefix"] for h in halves)
+    del single, sharded
+    torch.cuda.empty_cache()
+    return reading
+
+
+def sharded_small(dev) -> dict:
+    """A small window (512 nodes, 2^15 edges) on the card and on the CPU:
+    D in {1, 2, 8} under range, hash and skew placement, and one
+    under-provisioned 4-shard run that drops; walks, statistics and
+    per-shard drop counters equal bit for bit, and equal to the
+    single-device replay where nothing drops. Then a live reshard
+    4 -> 2 -> 8 on the card, every segment equal to the single-device
+    replay, and the static walker at 4 shards equal to 1 shard."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, ShardConfig,
+                                          WalkConfig, WindowConfig)
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.distributed import placement as pl
+    from repro_torch.distributed.collectives import ShardGroup
+    from repro_torch.distributed.streaming_shard import (
+        DistributedStreamingEngine)
+    from repro_torch.obs.registry import MetricsRegistry
+    t_start = time.perf_counter()
+    N = 512
+    sg = powerlaw_temporal_graph(N, 1 << 15, skew=1.2, t_max=100_000, seed=2)
+    sb = list(chronological_batches(sg, 4))
+    # every shard (and the single window) can hold the whole stream, so
+    # no window overflows and only the exchange capacities can drop
+    roomy = ShardConfig(edge_capacity_per_shard=1 << 15,
+                        exchange_capacity=1 << 13, walk_slots=1024,
+                        walk_bucket_capacity=1024)
+    tight = ShardConfig(edge_capacity_per_shard=1 << 15,
+                        exchange_capacity=256, walk_slots=256,
+                        walk_bucket_capacity=64)
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 15,
+                            node_capacity=N),
+        sampler=SamplerConfig(bias="exponential", mode="index"),
+        scheduler=SchedulerConfig(path="grouped"), shard=roomy)
+    wcfg = WalkConfig(num_walks=1024, max_length=16, start_mode="all_nodes")
+    B = 1 << 13
+
+    def single(batch_lists):
+        eng = StreamingEngine(cfg, B, device="cpu",
+                              registry=MetricsRegistry())
+        return [eng.replay_device(b, wcfg, return_walks=True)[:2]
+                for b in batch_lists]
+
+    (want_s, want_w), = single([sb])
+    loads = np.bincount(sg.src, minlength=N)
+
+    def placement(kind, D):
+        p = pl.make_placement(kind, D, N)
+        return pl.SkewPlacement.from_loads(p, loads, k=8) \
+            if kind == "skew" else p
+
+    cases = [(D, kind, roomy) for D in (1, 2, 8)
+             for kind in ("range", "hash", "skew")] + [(4, "range", tight)]
+    runs = []
+    for D, kind, shard in cases:
+        out = {}
+        for d in (dev, "cpu"):
+            eng = DistributedStreamingEngine(
+                dataclasses.replace(cfg, shard=shard), B, num_shards=D,
+                devices=[d] * D, placement=placement(kind, D),
+                registry=MetricsRegistry())
+            out[str(d)] = eng.replay_device(sb, wcfg)[:2]
+        (cs, cw), (ps, pw) = out[str(dev)], out["cpu"]
+        same = (stats_equal(cs.replay, ps.replay) and walks_equal(cw, pw)
+                and np.array_equal(cs.exchange_drops, ps.exchange_drops)
+                and np.array_equal(cs.walk_drops, ps.walk_drops))
+        require(same, f"sharded small D={D} {kind}: card and CPU differ")
+        drops = int(cs.exchange_drops.sum()) + int(cs.walk_drops.sum())
+        if shard is roomy:
+            require(drops == 0 and stats_equal(cs.replay, want_s)
+                    and walks_equal(cw, want_w),
+                    f"sharded small D={D} {kind}: differs from one device")
+        else:
+            require(int(cs.exchange_drops.sum()) > 0
+                    and int(cs.walk_drops.sum()) > 0,
+                    f"sharded small D={D}: the tight capacities dropped "
+                    "nothing")
+        runs.append(dict(shards=D, placement=kind,
+                         tight=shard is tight,
+                         exchange_drops=cs.exchange_drops.sum(0).tolist(),
+                         walk_drops=cs.walk_drops.sum(0).tolist()))
+
+    # live reshard 4 -> 2 -> 8 on the card, against one device
+    segments = (sb[:2], sb[2:], sb[:1])
+    want = single(segments)
+    eng = DistributedStreamingEngine(cfg, B, num_shards=4,
+                                     devices=[dev] * 8,
+                                     registry=MetricsRegistry())
+    shard_counts = []
+    for i, seg in enumerate(segments):
+        st, wk = eng.replay_device(seg, wcfg)[:2]
+        shard_counts.append(eng.num_shards)
+        require(stats_equal(st.replay, want[i][0])
+                and walks_equal(wk, want[i][1]),
+                f"reshard: segment {i} at {eng.num_shards} shards differs "
+                "from one device")
+        if i == 0:
+            eng.reshard_to(pl.make_placement("hash", 2, N))
+        elif i == 1:
+            eng.reshard_to(pl.make_placement("range", 8, N))
+
+    # the static walker with per-step migration: 4 shards == 1 shard
+    W, L = 512, 12
+    starts = (np.arange(W) % N).astype(np.int32)
+    times = np.full(W, -1, np.int32)
+    walked = {}
+    for D in (1, 4):
+        group = ShardGroup([dev] * D)
+        p = pl.make_placement("hash", D, N)
+        idxs, _ = dist.partition_edges(sg.src, sg.dst, sg.ts, N, D, 1 << 15,
+                                       placement=p, mesh=group)
+        state = dist.init_sharded_walks(D, W, L, starts, times, p,
+                                        mesh=group)
+        out = dist.make_distributed_walker(
+            group, idxs, cfg.sampler, placement=p, max_length=L,
+            bucket_capacity=W)(state)
+        require(sum(int(x) for x in out.dropped) == 0,
+                f"walker D={D}: bucket overflow")
+        walked[D] = dist.gather_walks(out, W)
+    require(all(np.array_equal(a, b) for a, b in zip(walked[1], walked[4])),
+            "walker: 4 shards differ from 1 shard")
+    return dict(cases=runs, reshard_shard_counts=shard_counts,
+                walker_walks=W, walker_length=L,
+                walker_moved=int((walked[1][2] > 1).sum()),
+                seconds=time.perf_counter() - t_start)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -1991,6 +2406,13 @@ def main(argv=None) -> int:
     emit("serve_cuda_equals_cpu", **serve_cuda_equals_cpu(dev))
     serve_tab = serve_tables(cfg, batches, dev)
     emit("serve_tables", **serve_tab)
+
+    # ---- phase 8: scale-out, 4 shards on one card ------------------------
+    sharded = sharded_path(args, cfg, batches, dev)
+    sharded_w = sharded.pop("sharded_walks")
+    emit("sharded_walks", **sharded_w)
+    emit("sharded_path", **sharded)
+    emit("sharded_small", **sharded_small(dev))
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -2005,7 +2427,9 @@ def main(argv=None) -> int:
              max_abs_err=fused_err, **times["fused_hop"], plain_ms=plain_ms,
              plain_lanes=int(lanes.numel()),
              grouped_plain_ms=plain_grouped, bound_ms=bound_hop,
-             bound_by="bytes", library_ms=None, **serve["fused_hop"])
+             bound_by="bytes", library_ms=None,
+             sharded_walks_launches=sharded_w["paths"]["fused"]["launches"][
+                 "fused_hop"], **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
     ] + [
@@ -2016,6 +2440,9 @@ def main(argv=None) -> int:
              serve_launches=serve["launches"]["weight_prefix"],
              table_path_launches=launches_tab["weight_prefix"],
              serve_tables_launches=serve_tab["launches"]["weight_prefix"],
+             sharded_path_launches=sharded["weight_prefix_launches"],
+             reshard_launches=sharded["rebalance"]["launches"][
+                 "weight_prefix"],
              max_abs_err=wp_max_err,
              **times["weight_prefix"], plain_ms=plain_wp, bound_ms=bound_wp,
              bound_by="bytes", library_ms=lib_wp),
@@ -2026,6 +2453,8 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in cmp_tiled.values()),
              **times["walk_step_tiled"], plain_ms=plain_ws, plain_lanes=W,
              bound_ms=bound_ws, bound_by="bytes", library_ms=None,
+             sharded_walks_launches=sharded_w["paths"]["tiled"]["launches"][
+                 "walk_step_tiled"],
              timed="walk_step_hop, index/exponential, every lane",
              tile_local_ms=times["walk_step_tiled_tile_local"]["ms"]),
     ]

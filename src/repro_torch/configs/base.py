@@ -24,9 +24,9 @@ class WindowConfig:
 class SamplerConfig:
     """Temporal bias sampling (paper §2.5).
 
-    The port serves ``bias`` uniform | linear | exponential in both modes;
-    ``core.walk_engine.check_capabilities`` raises "not yet ported" for
-    ``bias="table"`` and node2vec (p, q) != (1, 1).
+    The port serves every bias of the reference, ``"table"`` and
+    node2vec (p, q) included; ``core.walk_engine.check_capabilities``
+    refuses what the reference refuses.
     """
 
     bias: str = "exponential"         # uniform | linear | exponential | table
@@ -91,17 +91,35 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class ShardConfig:
-    """Node-partitioned window knobs (kept for ``EngineConfig`` field
-    parity; the port has no sharded window yet)."""
+    """Node-partitioned sliding window (repro_torch.distributed.
+    streaming_shard, DESIGN.md §12).
 
-    num_shards: int = 0
+    Capacities are per shard and static: overflow at any stage drops rows
+    and counts them, never reshapes. ``exchange_capacity`` bounds how many
+    batch edges one shard may send to one destination shard per ingest
+    (provision for owner skew: a hub-owning shard can receive up to
+    ``num_shards * exchange_capacity`` edges per batch);
+    ``walk_bucket_capacity`` is the walk-migration analogue (also
+    ``make_distributed_walker``'s bucket knob); ``walk_slots`` bounds the
+    walks resident on one shard between hops.
+
+    ``placement`` selects the node-ownership policy
+    (repro_torch.distributed.placement, DESIGN.md §15): ``range`` is
+    ``owner(v) = v // ceil(nc / D)``; ``hash`` decorrelates owners from
+    id locality through a multiplicative hash and a ``hash_buckets``-entry
+    routing table; ``skew`` starts as range and grows a measured
+    top-``hot_k`` hub override table through
+    ``DistributedStreamingEngine.rebalance``.
+    """
+
+    num_shards: int = 0                # 0 = one shard per device given
     edge_capacity_per_shard: int = 1 << 16
-    exchange_capacity: int = 1 << 12
-    walk_slots: int = 1 << 12
-    walk_bucket_capacity: int = 1 << 10
-    placement: str = "range"
-    hash_buckets: int = 256
-    hot_k: int = 8
+    exchange_capacity: int = 1 << 12   # batch edges per (sender, dest) pair
+    walk_slots: int = 1 << 12          # resident walk rows per shard
+    walk_bucket_capacity: int = 1 << 10  # migrating walks per (sender, dest)
+    placement: str = "range"           # range | hash | skew (DESIGN.md §15)
+    hash_buckets: int = 256            # routing-table entries (power of two)
+    hot_k: int = 8                     # hub overrides built by rebalance()
 
 
 @dataclass(frozen=True)

@@ -61,6 +61,11 @@ from repro_torch.obs.probes import (
 from repro_torch.obs.registry import MetricsRegistry, count_drop, get_registry
 from repro_torch.obs.tracing import span
 
+# sample_walks_sharded replicates the index per shard device; past this
+# size a one-time warning points at the node-partitioned engine
+# (DESIGN.md §12).
+REPLICATED_INDEX_WARN_BYTES = 256 << 20
+
 
 @dataclass
 class StreamStats:
@@ -199,6 +204,7 @@ class StreamingEngine:
         self._rebuilt_seen = 0
         # walk-buffer pool for sample_walks_donated, keyed by (W, L)
         self._walk_bufs: dict = {}
+        self._warned_replicated_index = False
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -312,6 +318,49 @@ class StreamingEngine:
         self._finish_sample(res, t0, path="donated")
         self._walk_bufs[shape_key] = WalkBuffers(res.nodes, res.times)
         return res
+
+    def sample_walks_sharded(self, wcfg: WalkConfig, mesh=None
+                             ) -> WalkResult:
+        """Walk-axis sharding over the group's shards (default: one per
+        visible device) against the replicated window index — see
+        repro_torch.distributed.walks (DESIGN.md §10).
+
+        Memory cost: every shard device holds a copy of the full dual
+        index (shards on one device share one), so the window must still
+        fit on one device. Past ``REPLICATED_INDEX_WARN_BYTES`` a one-time
+        warning points at the node-partitioned
+        ``repro_torch.distributed.streaming_shard.
+        DistributedStreamingEngine``, which shards the window itself.
+        """
+        from repro_torch.distributed.walks import generate_walks_sharded
+        self._warn_replicated_index()
+        self.key, sub = prng.split(self.key)
+        t0 = time.perf_counter()
+        res = generate_walks_sharded(self.state.index, sub, wcfg,
+                                     self.cfg.sampler, self.cfg.scheduler,
+                                     mesh=mesh)
+        self._finish_sample(res, t0, path="sharded")
+        return res
+
+    def _warn_replicated_index(self) -> None:
+        """One-time warning when the replicated-index sharding is used
+        with an index too large to replicate comfortably."""
+        if self._warned_replicated_index:
+            return
+        index = self.state.index
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*index.store, *index[1:]))
+        if nbytes > REPLICATED_INDEX_WARN_BYTES:
+            import warnings
+            warnings.warn(
+                f"sample_walks_sharded replicates the full window index "
+                f"(~{nbytes / 2**20:.0f} MiB) onto every device of the "
+                f"mesh; for windows of this size consider the "
+                f"node-partitioned "
+                f"repro_torch.distributed.streaming_shard.Distributed"
+                f"StreamingEngine (DESIGN.md §12), which shards the window "
+                f"itself.", stacklevel=3)
+            self._warned_replicated_index = True
 
     def _finish_sample(self, res: WalkResult, t0: float,
                        path: str = "host") -> float:

@@ -109,8 +109,8 @@ def check_capabilities(scfg: SamplerConfig, path: str,
 
     Refuses with the reference's ``ValueError`` and message wherever
     core/walk_engine.py::check_capabilities refuses. What the reference
-    runs and the port does not run yet, sharded walks and sharded
-    serving, raises ``NotImplementedError``."""
+    runs and the port does not run yet, sharded lane serving (``lanes``
+    with ``sharded``), raises ``NotImplementedError``."""
     if scfg.bias not in BIAS_CODES:
         raise ValueError(
             _CAP + f"unknown bias {scfg.bias!r} "
@@ -212,10 +212,9 @@ def check_capabilities(scfg: SamplerConfig, path: str,
                     "second-order lanes (the rejection loop re-draws "
                     "outside the kernel); use 'fullwalk'|'grouped'")
 
-    if sharded:
+    if sharded and lanes is not None:
         raise NotImplementedError(
-            "sharded walks and sharded serving are not yet ported to "
-            "PyTorch")
+            "sharded lane serving is not yet ported to PyTorch")
 
 
 class WalkResult(NamedTuple):
@@ -289,11 +288,14 @@ class _Carry(NamedTuple):
 
 
 def start_walks(index: TemporalIndex, wcfg: WalkConfig, scfg: SamplerConfig,
-                key, buffers: Optional[WalkBuffers] = None,
+                key, walk_offset: int = 0,
+                buffers: Optional[WalkBuffers] = None,
                 lanes: Optional[LaneParams] = None,
                 lane_keys: Optional[torch.Tensor] = None) -> _Carry:
     """Walk starts for start modes ``nodes``, ``edges`` and ``all_nodes``;
-    with ``lanes``, per-lane starts in modes ``nodes`` and ``edges``."""
+    with ``lanes``, per-lane starts in modes ``nodes`` and ``edges``.
+    ``walk_offset`` shifts the ``all_nodes`` assignment for walk-axis
+    sharding: walk w of shard s starts where global walk s·Wd + w would."""
     W, L = wcfg.num_walks, wcfg.max_length
     dev = index.ns_ts.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -340,7 +342,7 @@ def start_walks(index: TemporalIndex, wcfg: WalkConfig, scfg: SamplerConfig,
                  & ((index.node_starts[cl + 1] - index.node_starts[cl]) > 0)
                  & (lanes.start_node >= 0) & (lanes.start_node < nc))
     elif wcfg.start_mode == "all_nodes":
-        cur = torch.arange(W, **i32) % nc
+        cur = (walk_offset + torch.arange(W, **i32)) % nc
         cl = cur.long()
         alive = (index.node_starts[cl + 1] - index.node_starts[cl]) > 0
     elif wcfg.start_mode == "nodes":
@@ -744,10 +746,12 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
                          buffers: Optional[WalkBuffers] = None,
                          lanes: Optional[LaneParams] = None,
                          tables: Optional[AliasTables] = None,
-                         second_order: bool = False) -> WalkResult:
+                         second_order: bool = False,
+                         walk_offset: int = 0) -> WalkResult:
     """Shared body of every walk entry point. ``tables`` threads the
     window's alias tables (config bias "table" or lanes coded "table");
-    ``second_order`` runs the per-lane node2vec rejection."""
+    ``second_order`` runs the per-lane node2vec rejection; ``walk_offset``
+    shifts the ``all_nodes`` starts (distributed/walks.py)."""
     if lanes is not None:
         _check_lane_support(wcfg, scfg, sched_cfg, lanes, tables,
                             second_order)
@@ -771,7 +775,8 @@ def _generate_walks_impl(index: TemporalIndex, key, wcfg: WalkConfig,
     else:
         lane_keys = None
         start_key, walk_key = prng.split(key)
-    carry = start_walks(index, wcfg, scfg, start_key, buffers=buffers,
+    carry = start_walks(index, wcfg, scfg, start_key,
+                        walk_offset=walk_offset, buffers=buffers,
                         lanes=lanes, lane_keys=lane_keys)
     edges = wcfg.start_mode == "edges"
     hops = wcfg.max_length - 1 if edges else wcfg.max_length

@@ -65,11 +65,17 @@ def _arange(n: int, dev) -> torch.Tensor:
 
 
 def _prepare_runs(store: EdgeStore, t_prev, window, batch: EdgeBatch,
-                  node_capacity: int):
+                  node_capacity: int, watermark=None):
     """The two ts-sorted runs to merge (surviving store suffix, kept batch
     edges, each compacted to the front) plus bookkeeping scalars; the last
     is ``evict_to``, the length of the evicted store prefix, which the
-    alias-table dirty rule reads."""
+    alias-table dirty rule reads.
+
+    ``watermark`` (an int32 0-d tensor) is an externally agreed lower
+    bound on the new ``t_now``: a node-partitioned window (DESIGN.md §12)
+    passes the largest batch timestamp across all shards, so every shard
+    evicts against the same cutoff t − Δ even when its own slice of the
+    batch is older. It stays on the device."""
     E = store.capacity
     B = batch.src.shape[0]
     dev = store.src.device
@@ -86,6 +92,8 @@ def _prepare_runs(store: EdgeStore, t_prev, window, batch: EdgeBatch,
     last = torch.where(batch.count > 0, bts.index_select(
         0, (batch.count.long() - 1).clamp(0, B - 1).reshape(1))[0], -TS_PAD)
     t_now = torch.maximum(t_prev, last)
+    if watermark is not None:
+        t_now = torch.maximum(t_now, watermark)
     cutoff = t_now - window
 
     # (3) late drops in the batch; compact kept edges to the front
@@ -194,17 +202,20 @@ def _dirty_nodes(state: WindowState, run_b, merged, keep_n, bn, evict_to,
 
 def ingest(state: WindowState, batch: EdgeBatch, node_capacity: int,
            bias_scale: float = 1.0,
-           table: Optional[TableSpec] = None) -> WindowState:
+           table: Optional[TableSpec] = None,
+           watermark=None) -> WindowState:
     """Merge-based window advance by one batch; returns the new state and
     writes nothing it was given.
 
     ``table`` switches on alias-table maintenance: the dirty nodes are
     rebuilt against the new index and the clean ones copied. Pass the
     spec on every ingest of a table-carrying state: without it the
-    returned state has no tables.
+    returned state has no tables. ``watermark`` is the sharded window's
+    eviction hook (see ``_prepare_runs``); one window leaves it None.
     """
     run_s, run_b, t_now, late, evict_to = _prepare_runs(
-        state.index.store, state.t_now, state.window, batch, node_capacity)
+        state.index.store, state.t_now, state.window, batch, node_capacity,
+        watermark=watermark)
     merged = _merge_runs(run_s, run_b)
     new = _finalize(state, merged, run_s[3], run_b[3], t_now, late,
                     batch.count, node_capacity, bias_scale)

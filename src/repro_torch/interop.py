@@ -5,8 +5,9 @@ The functions take the reference's ``EdgeStore``, ``TemporalIndex``,
 are numpy arrays (or anything ``numpy.asarray`` accepts), and a key as two
 uint32 words. Tests use them to feed the reference's own index — its
 ``pexp``/``plin`` among it — into the port, so weight-mode walks can be
-compared bit for bit, to start the port from the reference's window and
-alias tables, and to run one packed lane batch in both packages.
+compared bit for bit, to start the port from the reference's window,
+sharded window and alias tables, and to run one packed lane batch in
+both packages.
 """
 from __future__ import annotations
 
@@ -77,6 +78,32 @@ def window_from_ref(state, device=None) -> WindowState:
                           for f in _COUNTERS},
                        tables=None if tables is None
                        else tables_from_ref(tables, device))
+
+
+def _take(x, d: int):
+    """Shard ``d`` of a reference value whose leaves carry a leading [D]
+    axis, as dicts of numpy arrays."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _take(v, d) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return {f: _take(getattr(x, f), d) for f in x._fields}
+    return np.asarray(x)[d]
+
+
+def sharded_window_from_ref(state, device=None):
+    """The port's ``ShardedWindowState`` from the reference's (leaves
+    [D, ...], alias tables included when present): one ``WindowState``
+    per shard, every shard on ``device`` (CUDA unless named)."""
+    from repro_torch.distributed.streaming_shard import ShardedWindowState
+    device = resolve_device(device)
+    xdrops = np.asarray(_get(state, "exchange_drops"), np.int32)
+    window = _get(state, "window")
+    return ShardedWindowState(
+        window=tuple(window_from_ref(_take(window, d), device)
+                     for d in range(xdrops.shape[0])),
+        exchange_drops=tuple(_tensor(x, np.int32, device) for x in xdrops))
 
 
 def lanes_from_ref(lanes, device=None) -> LaneParams:

@@ -214,7 +214,8 @@ def health_snapshot(registry: Optional[MetricsRegistry] = None, *,
     Reads the registry only; ``service`` (a ``WalkService``) refreshes
     queue depth and latency percentiles from its live stats view. The
     per-shard section reads the registry's ``shard_edges_active`` series,
-    which only a sharded window writes (not yet ported).
+    which a sharded replay writes (``DistributedStreamingEngine``); the
+    reference's ``engine=`` refresh is not yet ported.
     """
     reg = registry if registry is not None else get_registry()
 

@@ -400,3 +400,76 @@ def test_node2vec_walks_card_equal_cpu(card, path):
     for a, b in zip(*out):
         for f in ("nodes", "times", "lengths"):
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+
+
+def _sharded_engine(device, D, shard_kw=None):
+    from repro_torch.configs.base import ShardConfig
+    from repro_torch.distributed.placement import make_placement
+    from repro_torch.distributed.streaming_shard import (
+        DistributedStreamingEngine)
+    from repro_torch.obs.registry import MetricsRegistry
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 15,
+                            node_capacity=512),
+        sampler=SamplerConfig(bias="exponential", mode="index"),
+        shard=ShardConfig(**(shard_kw or dict(
+            edge_capacity_per_shard=1 << 15, exchange_capacity=1 << 13,
+            walk_slots=1024, walk_bucket_capacity=1024))))
+    return DistributedStreamingEngine(
+        cfg, 1 << 13, num_shards=D, devices=[device] * D,
+        placement=make_placement("hash", D, 512), registry=MetricsRegistry())
+
+
+@pytest.mark.parametrize("D,tight", [(2, False), (4, True)])
+def test_sharded_replay_card_equals_cpu(card, D, tight):
+    """A small sharded replay, D shards on the card against D on the CPU:
+    statistics, walks and per-shard drops equal; ``weight_prefix`` runs
+    twice per shard and ingest on the card."""
+    g = powerlaw_temporal_graph(512, 1 << 15, seed=2, t_max=100_000)
+    batches = list(chronological_batches(g, 4))
+    wcfg = WalkConfig(num_walks=1024, max_length=12, start_mode="all_nodes")
+    shard_kw = dict(edge_capacity_per_shard=1 << 15, exchange_capacity=256,
+                    walk_slots=256, walk_bucket_capacity=64) if tight \
+        else None
+    out = {}
+    for d in ("cuda", "cpu"):
+        eng = _sharded_engine(d, D, shard_kw)
+        runtime.reset_launches()
+        out[d] = eng.replay_device(batches, wcfg)[:2]
+        if d == "cuda":
+            assert runtime.LAUNCHES["weight_prefix"] == 2 * D * len(batches)
+            runtime.reset_launches()
+            eng.ingest_batch(*batches[0])
+            assert runtime.LAUNCHES["weight_prefix"] == 2 * D
+    (cs, cw), (ps, pw) = out["cuda"], out["cpu"]
+    for a, b in zip(cs.replay, ps.replay):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(cs.exchange_drops, ps.exchange_drops)
+    np.testing.assert_array_equal(cs.walk_drops, ps.walk_drops)
+    assert (int(cs.walk_drops.sum()) > 0) == tight
+    for a, b in zip(cw[:3], pw[:3]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("path", ["fused", "tiled"])
+def test_sharded_walks_card_equal_cpu(card, path):
+    """``generate_walks_sharded`` with 4 shards on the card launches the
+    path's hop kernel once per shard and hop, and equals the CPU run."""
+    from repro_torch import random as prng
+    from repro_torch.distributed.collectives import ShardGroup
+    from repro_torch.distributed.walks import generate_walks_sharded
+    wcfg = WalkConfig(num_walks=1024, max_length=10, start_mode="all_nodes")
+    sched = SchedulerConfig(path=path, tile_walks=64, tile_edges=256)
+    name = "fused_hop" if path == "fused" else "walk_step_tiled"
+    out = {}
+    for d in ("cuda", "cpu"):
+        runtime.reset_launches()
+        out[d] = generate_walks_sharded(
+            _index(d), prng.PRNGKey(5), wcfg,
+            SamplerConfig(bias="linear", mode="index"), sched,
+            mesh=ShardGroup([d] * 4))
+        if d == "cuda":
+            assert runtime.LAUNCHES[name] == 4 * wcfg.max_length
+    for f in ("nodes", "times", "lengths"):
+        np.testing.assert_array_equal(getattr(out["cuda"], f).cpu().numpy(),
+                                      getattr(out["cpu"], f).numpy())

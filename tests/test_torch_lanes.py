@@ -13,7 +13,7 @@
   call without buffers and write the buffers they were given.
 * The capability matrix: every combination the reference refuses is
   refused with its message; what it runs the port runs, except sharded
-  walks, which raise ``NotImplementedError``.
+  lane serving, which raises ``NotImplementedError``.
 * ``StreamingEngine``'s host loop (``replay``, ``sample_walks``,
   ``sample_walks_donated``): the reference engine's walks, window counts
   and registry counters.
@@ -291,7 +291,7 @@ def _outcome(check, scfg, path, lanes, sharded, have_tables):
 def test_capability_matrix_matches_reference():
     """Every combination, the default ``have_tables`` included: the port
     runs or refuses (same message) as the reference does; only sharded
-    combinations the reference runs are "not yet ported"."""
+    lane-serving combinations the reference runs are "not yet ported"."""
     counts = {}
     for mode, bias, path, lanes, sharded, have_tables, n2v in _sweep():
         j_lanes = None if lanes is None else jwe.LaneFeatures(*lanes)
@@ -308,8 +308,9 @@ def test_capability_matrix_matches_reference():
         if want == "refused":
             assert (got, got_msg) == (want, want_msg), combo
         else:
-            assert got == ("not yet ported" if sharded else "runs"), combo
-            if sharded:
+            serving = sharded and lanes is not None
+            assert got == ("not yet ported" if serving else "runs"), combo
+            if serving:
                 assert "not yet ported" in got_msg
         counts[got] = counts.get(got, 0) + 1
     assert sum(counts.values()) == 2 * 4 * 4 * 5 * 2 * 2 * 2
