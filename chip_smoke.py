@@ -22,11 +22,16 @@ stream through the node-partitioned window with 4 shards on the card
 (``DistributedStreamingEngine``, byte-equal to the single-device replay
 across a live ``rebalance``), samples walk-axis-sharded walks on the
 fused, tiled and grouped paths, holds small sharded replays, reshards
-and the static walker to the CPU and to one shard, and prints one JSON
-line per phase. The last three lines are the kernels table, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
-phase exits non-zero. With no CUDA device, or without the package next
-to it, it exits 2 and prints no result.
+and the static walker to the CPU and to one shard, serves 256 queries
+through ``WalkService(num_shards=4)`` on the main path's window while its
+next batch is ingested (every ticket equal to the single-device
+service's), holds small sharded services to the CPU and to single-device
+solo runs, checkpoints a sharded window mid-stream and restores it at
+another shard count (``StreamSupervisor``, ``restore_engine``), and
+prints one JSON line per phase. The last three lines are the kernels
+table, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. Any failed phase exits non-zero. With no CUDA device, or
+without the package next to it, it exits 2 and prints no result.
 
 The options exist to cut the run for a shorter time limit; every cut
 against the full configuration is printed.
@@ -784,10 +789,11 @@ SERVE_HUB_SHARE = 0.01
 SERVE_TILE_WALKS = 64
 
 
-def serve_traffic(rng, num_nodes, hubs, n=SERVE_QUERIES):
+def serve_traffic(rng, num_nodes, hubs, n=SERVE_QUERIES, max_length=80):
     """The serving phase's queries: ~70% nodes mode with 1-64 start nodes,
     half of them drawn from ``hubs``; ~30% edges mode with 16-256 walks;
-    bias, start bias and max_length 3-80 at random; distinct seeds."""
+    bias, start bias and max_length 3-``max_length`` at random; distinct
+    seeds."""
     import numpy as np
     from repro_torch.serve import WalkQuery
     biases = ("uniform", "linear", "exponential")
@@ -795,7 +801,7 @@ def serve_traffic(rng, num_nodes, hubs, n=SERVE_QUERIES):
     out = []
     for seed in seeds:
         bias, start_bias = (biases[i] for i in rng.integers(0, 3, 2))
-        length = int(rng.integers(3, 81))
+        length = int(rng.integers(3, max_length + 1))
         if rng.uniform() < 0.7:
             k = int(rng.integers(1, 65))
             starts = np.where(rng.uniform(size=k) < 0.5,
@@ -828,7 +834,7 @@ def drive_serve(svc, queries, next_batch, observe=None, wave=SERVE_WAVE):
         return launch(params, wcfg, pin, **kw)
     if observe is not None:
         svc._launch_lanes = observed
-    states = {svc.snapshots.version: svc.snapshots.current}
+    states = {svc.snapshots.version: svc.snapshots.acquire().state}
     waves = [queries[i:i + wave] for i in range(0, len(queries), wave)]
     tickets = []
     torch.cuda.synchronize()
@@ -838,7 +844,7 @@ def drive_serve(svc, queries, next_batch, observe=None, wave=SERVE_WAVE):
             svc.begin_ingest(*next_batch)
         if w == len(waves) // 2 + 2:
             svc.publish()
-            states[svc.snapshots.version] = svc.snapshots.current
+            states[svc.snapshots.version] = svc.snapshots.acquire().state
         tickets += [svc.submit(q) for q in qs]
         svc.tick()
         while svc.pending_count:
@@ -924,15 +930,19 @@ def lane_hop_inputs(index, key, lanes, wcfg, scfg, sched, hops: int):
             us[hops][order].contiguous())
 
 
-def profile_lane_batch(call, hops: int, draw_call) -> dict:
+def profile_lane_batch(call, hops: int, draw_call,
+                       host_ops: bool = True) -> dict:
     """Device kernels, busy ms and idle share of one lane batch, from a
-    torch.profiler trace; the kernels of its all-hops lane draw alone."""
+    torch.profiler trace; the kernels of its all-hops lane draw alone.
+    ``host_ops=False`` traces the device alone: the host ops of a sharded
+    batch's ~160,000 kernels make its trace slow to read back, and their
+    own tracing lengthens the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -945,17 +955,20 @@ def profile_lane_batch(call, hops: int, draw_call) -> dict:
                 draw_kernels=draw,
                 kernels_per_hop_without_draw=(len(spans) - draw) / hops,
                 device_busy_ms=busy, traced_wall_ms=wall_ms,
-                device_idle_share=1 - busy / wall_ms, hops=hops)
+                device_idle_share=1 - busy / wall_ms, hops=hops,
+                host_ops_traced=host_ops)
 
 
-def serve_window(cfg, serve_cfg, batches, dev):
-    """A WalkService over the first SERVE_WINDOW_BATCHES batches of the
-    main path's stream, ingested one by one."""
+def serve_window(cfg, serve_cfg, batches, dev, **kw):
+    """A WalkService (``kw``: e.g. ``num_shards``) over the first
+    SERVE_WINDOW_BATCHES batches of the main path's stream, ingested one
+    by one."""
     import torch
     from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.serve import WalkService
     svc = WalkService(cfg, serve_cfg, batch_capacity=max(
-        len(b[0]) for b in batches), registry=MetricsRegistry(), device=dev)
+        len(b[0]) for b in batches), registry=MetricsRegistry(), device=dev,
+        **kw)
     t0 = time.perf_counter()
     for b in batches[:SERVE_WINDOW_BATCHES]:
         svc.ingest(*b)
@@ -1143,7 +1156,7 @@ def serve_cuda_equals_cpu(dev) -> dict:
 
 # ---- alias tables, node2vec and probes ------------------------------------
 # served queries of serve_tables, compared with solo runs
-SERVE_TABLE_QUERIES = 256
+SERVE_TABLE_QUERIES = 128
 SERVE_TABLE_SOLO = 32
 # node2vec phases: (p, q) of the config walks
 N2V_PQ = (0.5, 2.0)
@@ -1983,6 +1996,403 @@ def sharded_small(dev) -> dict:
                 seconds=time.perf_counter() - t_start)
 
 
+# ---- sharded serving and the window checkpoints --------------------------
+# queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: eight waves, the
+# next batch ingested from the fifth to the seventh
+SERVE_SHARDED_QUERIES = 256
+SERVE_SHARDED_WAVE = 32
+# window_checkpoint's reduced stream: nodes, edges per batch, batches
+CKPT_NODES, CKPT_BATCH, CKPT_BATCHES = 1 << 20, 1 << 20, 6
+CKPT_EDGE_CAPACITY = 1 << 22
+CKPT_WALKS, CKPT_LENGTH = 1 << 16, 16
+
+
+def started_lanes(results: dict) -> int:
+    """Served lanes that started a walk (length > 0)."""
+    return sum(int((r.lengths > 0).sum()) for r in results.values())
+
+
+def serve_sharded(args, cfg, batches, dev) -> dict:
+    """Sharded serving at full size: the main path's window after
+    SERVE_WINDOW_BATCHES batches on 4 shards of the card (sharded_path's
+    ShardConfig), SERVE_SHARDED_QUERIES closed-form queries in both start
+    modes and all three biases, the next batch ingested while serving.
+    Every ticket equals the single-device service's for the same query and
+    version; no lane or edge drops; the per-shard claims sum to the started
+    lanes; no host sync in ``_launch``; ``weight_prefix`` twice per shard
+    for the one ``begin_ingest``, no hop kernel. Then one 4096 × 80 sharded
+    batch under the profiler."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import (SchedulerConfig, ServeConfig,
+                                          WalkConfig)
+    from repro_torch.core import walk_engine as we
+    from repro_torch.distributed.streaming_shard import serve_lanes_sharded
+    from repro_torch.kernels import runtime
+    from repro_torch.serve import WalkQuery, pack_queries
+    t_phase = time.perf_counter()
+    # what earlier phases left in reference cycles goes first
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated0 = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(6)
+    sched = SchedulerConfig(path="fused", regroup="bucket",
+                            tile_walks=SERVE_TILE_WALKS)
+    cfg_s = dataclasses.replace(cfg, scheduler=sched,
+                                shard=shard_config(args))
+    nc = cfg.window.node_capacity
+    next_batch = batches[SERVE_WINDOW_BATCHES]
+
+    # the single-device service on the fused path: the tickets to equal
+    single, _ = serve_window(cfg_s, ServeConfig(), batches, dev)
+    idx = single.snapshots.current.index
+    deg = idx.node_starts[1:nc + 1] - idx.node_starts[:nc]
+    hubs = torch.topk(deg, max(1, int(nc * SERVE_HUB_SHARE))).indices
+    hubs = hubs.cpu().numpy()
+    queries = serve_traffic(rng, nc, hubs, n=SERVE_SHARDED_QUERIES)
+    want, single_secs, states = drive_serve(single, queries, next_batch,
+                                            wave=SERVE_SHARDED_WAVE)
+    require(len(states) == 2, f"serve_sharded: versions {sorted(states)}")
+    validity = served_validity(want, states, 80)
+    del single, states, idx, deg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path of this phase: counts set to 0 just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    svc, window_s = serve_window(cfg_s, ServeConfig(), batches, dev,
+                                 num_shards=SHARDS)
+    svc._launch = no_host_sync(svc._launch)
+    runtime.reset_launches()
+    results, secs, _ = drive_serve(svc, queries, next_batch,
+                                   wave=SERVE_SHARDED_WAVE)
+    launches = dict(runtime.LAUNCHES)
+    st = svc.stats
+    differ = results_differ(results, want)
+    started = started_lanes(results)
+    require(st.completed == len(queries) and st.dropped == 0,
+            f"serve_sharded: {st.completed} of {len(queries)} completed, "
+            f"{st.dropped} dropped")
+    require(differ == 0, f"serve_sharded: {differ} tickets differ from the "
+                         "single-device service")
+    require(st.shard_walk_drops == 0 and st.exchange_drops == 0,
+            f"serve_sharded: drops {st.shard_walk_drops} lanes, "
+            f"{st.exchange_drops} edges")
+    require(sum(st.lanes_by_shard.values()) == started,
+            f"serve_sharded: claims {st.lanes_by_shard} != {started} "
+            "started lanes")
+    require(launches == dict(fused_hop=0, weight_prefix=2 * SHARDS,
+                             walk_step_tiled=0),
+            f"serve_sharded: launches {launches}, not {2 * SHARDS} "
+            "weight_prefix for one begin_ingest")
+    reading = dict(
+        queries=len(queries), shards=SHARDS,
+        shard_config=dataclasses.asdict(cfg_s.shard),
+        window_batches=SERVE_WINDOW_BATCHES, wave=SERVE_SHARDED_WAVE,
+        window_ingest_seconds=window_s, seconds=secs, walks=st.walks,
+        hops=st.hops, walks_per_wall_s=st.walks / secs,
+        hops_per_wall_s=st.hops / secs, walks_per_s=st.walks_per_s,
+        p50_ms=st.p50_ms, p99_ms=st.p99_ms, batches=st.batches,
+        lane_occupancy=st.lane_occupancy, lanes_live=st.lanes_live,
+        started_lanes=started,
+        lanes_by_shard={str(k): v for k, v in
+                        sorted(st.lanes_by_shard.items())},
+        shard_walk_drops=st.shard_walk_drops,
+        exchange_drops=st.exchange_drops, launches=launches,
+        versions=sorted({r.snapshot_version for r in results.values()}),
+        tickets_differ=differ, single_device_seconds=single_secs,
+        single_device_validity=validity, launch_host_syncs=0,
+        shard_loads=[int(w.index.num_edges)
+                     for w in svc.snapshots.state.window])
+
+    # one 4096-lane x 80 sharded batch: kernels per hop, idle share
+    W, L = 4096, 80
+    per = W // 64
+    prof_q = [WalkQuery(
+        start_nodes=tuple(int(v) for v in np.where(
+            rng.uniform(size=per) < 0.5, rng.choice(hubs, size=per),
+            rng.integers(0, nc, size=per))),
+        bias=("uniform", "linear", "exponential")[i % 3], max_length=L,
+        seed=7 * i + 1) for i in range(64)]
+    params, _ = pack_queries(prof_q, W, L, device=dev)
+    wcfg = WalkConfig(num_walks=W, max_length=L, start_mode="nodes")
+    pin, key = svc.snapshots.acquire(), svc.base_key
+    reading["batch_4096x80"] = profile_lane_batch(
+        lambda: serve_lanes_sharded(
+            pin.state, pin.view, key, params, mesh=svc.snapshots.mesh,
+            node_capacity=nc, wcfg=wcfg, scfg=cfg.sampler,
+            shard_cfg=cfg_s.shard, placement=svc.placement,
+            with_probes=svc.probes), L,
+        lambda: we._lane_uniform(we._lane_keys(key, params), torch.arange(
+            L + 1, device=dev)[:, None]), host_ops=False)
+    reading["allocated_at_start_gib"] = allocated0 / 2**30
+    reading["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del svc, pin, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading["phase_seconds"] = time.perf_counter() - t_phase
+    return reading
+
+
+def serve_sharded_small(dev) -> dict:
+    """Sharded serving on a small window (512 nodes, 2^15 edges), the
+    last batch ingested while serving: at 1, 2 and 8 shards under range,
+    hash and skew placement the card's tickets equal the CPU's and the
+    single-device solo runs, with no drops; an under-provisioned 4-shard
+    service drops lanes and edges alike on card and CPU; the sharded
+    refusals raise."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, ServeConfig,
+                                          ShardConfig, WindowConfig)
+    from repro_torch.core.edge_store import make_batch
+    from repro_torch.core.window import init_window
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.distributed import placement as pl
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import (ShardedSnapshotManager, WalkQuery,
+                                   WalkService)
+    t_start = time.perf_counter()
+    N = 512
+    g = powerlaw_temporal_graph(N, 1 << 15, skew=1.2, t_max=100_000, seed=2)
+    stream = list(chronological_batches(g, 4))
+    # every shard (and the single window) can hold the whole stream
+    roomy = ShardConfig(edge_capacity_per_shard=1 << 15,
+                        exchange_capacity=1 << 13, walk_slots=2048,
+                        walk_bucket_capacity=2048)
+    tight = ShardConfig(edge_capacity_per_shard=1 << 15,
+                        exchange_capacity=256, walk_slots=32,
+                        walk_bucket_capacity=16)
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 15,
+                            node_capacity=N),
+        sampler=SamplerConfig(mode="index"),
+        scheduler=SchedulerConfig(path="grouped"), shard=roomy)
+    queries = serve_traffic(np.random.default_rng(4), N, np.arange(8), n=16,
+                            max_length=16)
+    loads = np.bincount(g.src, minlength=N)
+
+    def serve(d, D=0, kind="range", shard=roomy):
+        placement = None
+        if D:
+            placement = pl.make_placement(kind, D, N)
+            if kind == "skew":
+                placement = pl.SkewPlacement.from_loads(placement, loads,
+                                                        k=8)
+        svc = WalkService(dataclasses.replace(cfg, shard=shard),
+                          ServeConfig(), batch_capacity=1 << 13,
+                          registry=MetricsRegistry(), device=d,
+                          num_shards=D, placement=placement)
+        for b in stream[:3]:
+            svc.ingest(*b)
+        results, _, states = drive_serve(svc, queries, stream[3], wave=2)
+        return svc, results, states
+
+    # single-device solo runs at each ticket's version
+    _, coalesced, states = serve(dev)
+    require(len(states) == 2, f"sharded small: versions {sorted(states)}")
+    solo = {v: WalkService(cfg, state=s, registry=MetricsRegistry())
+            for v, s in states.items()}
+    want = {t: (r.snapshot_version, solo[r.snapshot_version].run_query_solo(
+        r.query)) for t, r in coalesced.items()}
+    del solo, states
+
+    cases = [(D, kind, roomy) for D in (1, 2, 8)
+             for kind in ("range", "hash", "skew")] + [(4, "range", tight)]
+    runs = []
+    for D, kind, shard in cases:
+        (c_svc, c_res, _), (p_svc, p_res, _) = (
+            serve(d, D, kind, shard) for d in (dev, "cpu"))
+        what = f"sharded small D={D} {kind}" + (
+            " tight" if shard is tight else "")
+        differ = results_differ(c_res, p_res)
+        require(differ == 0, f"{what}: {differ} tickets differ, card vs CPU")
+        counters = [(s.stats.shard_walk_drops, s.stats.exchange_drops,
+                     s.stats.lanes_by_shard) for s in (c_svc, p_svc)]
+        require(counters[0] == counters[1],
+                f"{what}: drops and claims differ, card vs CPU: {counters}")
+        walk_drops, edge_drops, claims = counters[0]
+        if shard is roomy:
+            solo_differ = sum(
+                not (r.snapshot_version == want[t][0] and all(
+                    np.array_equal(a, b) for a, b in zip(
+                        (r.nodes, r.times, r.lengths), want[t][1])))
+                for t, r in c_res.items())
+            require(solo_differ == 0 and walk_drops == edge_drops == 0,
+                    f"{what}: {solo_differ} tickets differ from the "
+                    f"single-device solo runs; drops {walk_drops}, "
+                    f"{edge_drops}")
+            require(sum(claims.values()) == started_lanes(c_res),
+                    f"{what}: claims {claims}")
+        else:
+            require(walk_drops > 0 and edge_drops > 0,
+                    f"{what}: the tight capacities dropped nothing")
+        runs.append(dict(shards=D, placement=kind, tight=shard is tight,
+                         shard_walk_drops=walk_drops,
+                         exchange_drops=edge_drops,
+                         lanes_by_shard={str(k): v for k, v in
+                                         sorted(claims.items())}))
+
+    # the sharded refusals, as the reference's
+    def service(**kw):
+        return WalkService(dataclasses.replace(cfg, **kw), num_shards=2,
+                           device=dev, registry=MetricsRegistry())
+    svc = service()
+    refusals = {
+        "mode weight": lambda: service(sampler=SamplerConfig(mode="weight")),
+        "node2vec": lambda: service(sampler=SamplerConfig(
+            mode="index", node2vec_p=2.0)),
+        "bias table": lambda: service(sampler=SamplerConfig(
+            mode="index", bias="table")),
+        "state override": lambda: WalkService(
+            cfg, state=init_window(1 << 15, N, 50_000, device=dev),
+            num_shards=2, device=dev),
+        "table query": lambda: svc.submit(WalkQuery(start_nodes=(1,),
+                                                    bias="table")),
+        "second-order query": lambda: svc.submit(WalkQuery(
+            start_nodes=(1,), n2v_p=2.0)),
+        "more shards than devices": lambda: ShardedSnapshotManager(
+            cfg, num_shards=3, devices=[dev] * 2),
+        "batch capacity": lambda: svc.snapshots.begin_ingest(make_batch(
+            [1], [2], [3], capacity=16, device=dev)),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"sharded serving: {what} was not refused")
+    return dict(queries=len(queries), cases=runs,
+                refusals=sorted(refusals),
+                seconds=time.perf_counter() - t_start)
+
+
+def edge_multiset(state):
+    """The window's edges over all shards as one (src, dst, ts)-sorted
+    int32 [n, 3] host array."""
+    import numpy as np
+    cols = [np.concatenate([getattr(w.index.store, f)[
+        :int(w.index.num_edges)].cpu().numpy() for w in state.window])
+        for f in ("src", "dst", "ts")]
+    order = np.lexsort(cols[::-1])
+    return np.stack([c[order] for c in cols], axis=1)
+
+
+def window_checkpoint(dev) -> dict:
+    """Sharded-window checkpoints at a reduced size (CKPT_*: a full window
+    would write 4 × 3.25 GiB of .npy and reshard 2^28 slots through the
+    host mirror). ``StreamSupervisor(save_every=4)`` replays 4 shards on
+    the card, ``restore_engine`` brings the window back at 2 shards and
+    the replay goes on; then 2 → 4. The continued replay's last
+    ``ReplayStats``, walk key and edge multiset equal an uninterrupted run
+    at the target count. Reads the checkpoint's bytes and the seconds to
+    save and to restore."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, ShardConfig,
+                                          WalkConfig, WindowConfig)
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.distributed.fault_tolerance import StreamSupervisor
+    from repro_torch.distributed.streaming_shard import (
+        DistributedStreamingEngine)
+    from repro_torch.kernels import runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    t_start = time.perf_counter()
+    g = powerlaw_temporal_graph(CKPT_NODES, CKPT_BATCH * CKPT_BATCHES,
+                                skew=1.2, t_max=10_000_000, seed=4)
+    batches = list(chronological_batches(g, CKPT_BATCHES))
+    # range placement puts the hubs and every all-nodes start on shard 0
+    # at 2 and 4 shards: its capacities are those of a whole batch
+    cfg = EngineConfig(
+        window=WindowConfig(duration=5_000_000.0,
+                            edge_capacity=CKPT_EDGE_CAPACITY,
+                            node_capacity=CKPT_NODES),
+        sampler=SamplerConfig(bias="exponential", mode="index"),
+        scheduler=SchedulerConfig(path="grouped"),
+        shard=ShardConfig(edge_capacity_per_shard=CKPT_EDGE_CAPACITY,
+                          exchange_capacity=CKPT_BATCH // 2,
+                          walk_slots=CKPT_WALKS,
+                          walk_bucket_capacity=CKPT_WALKS,
+                          placement="range"))
+    wcfg = WalkConfig(num_walks=CKPT_WALKS, max_length=CKPT_LENGTH,
+                      start_mode="all_nodes")
+    pool = [dev] * SHARDS
+
+    def engine(D):
+        return DistributedStreamingEngine(cfg, CKPT_BATCH, num_shards=D,
+                                          devices=pool, probes=False,
+                                          registry=MetricsRegistry())
+    runs = []
+    for d_save, d_load in ((SHARDS, 2), (2, SHARDS)):
+        with tempfile.TemporaryDirectory() as tmp:
+            sup = StreamSupervisor(tmp, save_every=4,
+                                   registry=MetricsRegistry())
+            e1 = engine(d_save)
+            sup.run(e1, batches[:4], wcfg)
+            require(sup.resume_batch() == 4,
+                    f"checkpoint: resume at {sup.resume_batch()}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sup.checkpointer.save(e1, 4)
+            save_s = time.perf_counter() - t0
+            wdir = sup.checkpointer.window_dir
+            nbytes = sum(os.path.getsize(os.path.join(wdir, f))
+                         for f in os.listdir(wdir))
+            before = edge_multiset(e1.state)
+            del e1
+            runtime.reset_launches()
+            t0 = time.perf_counter()
+            e2 = sup.checkpointer.restore_engine(cfg, CKPT_BATCH,
+                                                 num_shards=d_load,
+                                                 devices=pool)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            restore_launches = dict(runtime.LAUNCHES)
+            require(e2.num_shards == d_load
+                    and np.array_equal(edge_multiset(e2.state), before),
+                    f"checkpoint {d_save} -> {d_load}: the restore lost "
+                    "edges")
+            out, step = sup.run(e2, batches, wcfg, start_batch=4)
+            ref = engine(d_load)
+            for b in batches[:-1]:
+                ref.replay_device([b], wcfg)
+            last, _, _ = ref.replay_device([batches[-1]], wcfg)
+            same = dict(
+                walk_key=bool(torch.equal(e2.key, ref.key)),
+                replay_stats=stats_equal(out[-1].replay, last.replay),
+                edges=bool(np.array_equal(edge_multiset(e2.state),
+                                          edge_multiset(ref.state))),
+                drops=int(out[-1].exchange_drops.sum())
+                + int(out[-1].walk_drops.sum()) == 0)
+            require(step == CKPT_BATCHES and all(same.values()),
+                    f"checkpoint {d_save} -> {d_load}: {same}")
+            runs.append(dict(saved_shards=d_save, restored_shards=d_load,
+                             checkpoint_bytes=nbytes, save_seconds=save_s,
+                             restore_seconds=restore_s,
+                             restore_launches=restore_launches,
+                             window_edges=int(before.shape[0]),
+                             shard_loads=e2.shard_loads().tolist(),
+                             equal=same))
+            del e2, ref
+    torch.cuda.empty_cache()
+    return dict(runs=runs, nodes=CKPT_NODES, edges_per_batch=CKPT_BATCH,
+                batches=CKPT_BATCHES, edge_capacity_per_shard=(
+                    CKPT_EDGE_CAPACITY), walks=CKPT_WALKS,
+                max_length=CKPT_LENGTH,
+                cut="reduced from the main window (2^22 nodes, 2^26 slots "
+                    "a shard): the full one writes 4 x 3.25 GiB of .npy and "
+                    "reshards 2^28 slots through the host mirror",
+                seconds=time.perf_counter() - t_start)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -2413,6 +2823,13 @@ def main(argv=None) -> int:
     emit("sharded_walks", **sharded_w)
     emit("sharded_path", **sharded)
     emit("sharded_small", **sharded_small(dev))
+
+    # ---- phase 9: sharded serving and the window checkpoints -------------
+    serve_sh = serve_sharded(args, cfg, batches, dev)
+    emit("serve_sharded", **serve_sh)
+    emit("serve_sharded_small", **serve_sharded_small(dev))
+    ckpt = window_checkpoint(dev)
+    emit("window_checkpoint", **ckpt)
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -2443,6 +2860,10 @@ def main(argv=None) -> int:
              sharded_path_launches=sharded["weight_prefix_launches"],
              reshard_launches=sharded["rebalance"]["launches"][
                  "weight_prefix"],
+             serve_sharded_launches=serve_sh["launches"]["weight_prefix"],
+             checkpoint_restore_launches=[
+                 r["restore_launches"]["weight_prefix"]
+                 for r in ckpt["runs"]],
              max_abs_err=wp_max_err,
              **times["weight_prefix"], plain_ms=plain_wp, bound_ms=bound_wp,
              bound_by="bytes", library_ms=lib_wp),

@@ -75,8 +75,8 @@ class ServeConfig:
     ``linger_s`` keeps a partly filled batch open to late same-group
     queries until its head query has waited that long; ``admission`` is
     the head-of-line order, ``"fifo"`` or ``"edf"`` (earliest
-    ``WalkQuery.deadline_s`` first). ``num_shards`` > 0 (sharded serving)
-    is not yet ported.
+    ``WalkQuery.deadline_s`` first). ``num_shards`` > 0 serves from a
+    node-partitioned window of that many shards (DESIGN.md §13).
     """
 
     queue_capacity: int = 1024        # pending-query slots; beyond -> dropped

@@ -108,9 +108,8 @@ def check_capabilities(scfg: SamplerConfig, path: str,
     """Validate a (sampler config, path, lane features) combination.
 
     Refuses with the reference's ``ValueError`` and message wherever
-    core/walk_engine.py::check_capabilities refuses. What the reference
-    runs and the port does not run yet, sharded lane serving (``lanes``
-    with ``sharded``), raises ``NotImplementedError``."""
+    core/walk_engine.py::check_capabilities refuses, and runs everything
+    else."""
     if scfg.bias not in BIAS_CODES:
         raise ValueError(
             _CAP + f"unknown bias {scfg.bias!r} "
@@ -211,10 +210,6 @@ def check_capabilities(scfg: SamplerConfig, path: str,
                     _CAP + "path='fused' does not support node2vec "
                     "second-order lanes (the rejection loop re-draws "
                     "outside the kernel); use 'fullwalk'|'grouped'")
-
-    if sharded and lanes is not None:
-        raise NotImplementedError(
-            "sharded lane serving is not yet ported to PyTorch")
 
 
 class WalkResult(NamedTuple):

@@ -16,6 +16,9 @@ window carries alias tables (core/alias.py): each ingest rebuilds only the
 nodes whose region changed (``_dirty_nodes``) and copies the rest; the
 first ingest of a table-less state builds them from scratch.
 
+``TsView`` (``init_view``/``advance_view``) is the window's store and
+clock without the index: sharded serving's start directory.
+
 Everything stays on the device with fixed shapes and 0-d tensors for the
 counters, so the host never waits on an ingest.
 """
@@ -250,3 +253,50 @@ def ingest_sort(state: WindowState, batch: EdgeBatch, node_capacity: int,
 # writes its input, so it is also the serving buffer's non-donating one
 ingest_merge = ingest
 ingest_nodonate = ingest
+
+
+# ---------------------------------------------------------------------------
+# Timestamp view: the global window's (src, dst, ts) columns without a
+# dual index (sharded serving's start directory, DESIGN.md §13)
+# ---------------------------------------------------------------------------
+
+
+class TsView(NamedTuple):
+    """A bare timestamp-sorted store plus the window clock, no dual index.
+
+    Advanced through the single-device merge stages, so ``store`` is
+    byte-equal to the single-device window's store for the same batch
+    stream. Sharded serving keeps one beside the node-partitioned window:
+    a global start-edge draw (a position in the global ts view) resolves
+    on any shard, while the dual indexes stay sharded. It costs 3 int32
+    columns of the global edge capacity."""
+
+    store: EdgeStore
+    t_now: torch.Tensor          # int32: max timestamp seen
+    window: torch.Tensor         # int32: Δ
+
+
+def init_view(edge_capacity: int, node_capacity: int, window: int,
+              device=None) -> TsView:
+    """An empty view, on CUDA unless ``device`` names another."""
+    store = empty_store(edge_capacity, node_capacity, device=device)
+    dev = store.src.device
+    return TsView(store=store,
+                  t_now=torch.zeros((), dtype=torch.int32, device=dev),
+                  window=torch.tensor(window, dtype=torch.int32,
+                                      device=dev))
+
+
+def advance_view(view: TsView, batch: EdgeBatch,
+                 node_capacity: int) -> TsView:
+    """Advance a view by one batch: the window ingest without the index
+    build, the same store and ``t_now`` trajectory as ``ingest``. Writes
+    nothing it was given, so the old view stays readable while the next
+    one builds."""
+    run_s, run_b, t_now, _, _ = _prepare_runs(
+        view.store, view.t_now, view.window, batch, node_capacity)
+    store, _ = _clip_to_capacity(_merge_runs(run_s, run_b), run_s[3],
+                                 run_b[3], view.store.capacity,
+                                 node_capacity)
+    return TsView(store=store, t_now=t_now.to(torch.int32),
+                  window=view.window)

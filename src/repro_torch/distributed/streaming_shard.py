@@ -1,6 +1,6 @@
 """Node-partitioned sliding window: sharded streaming ingest and walks
-(DESIGN.md §12), PyTorch port of repro/distributed/streaming_shard.py
-(its serving half, ``serve_lanes_sharded``, is not yet ported).
+and serving (DESIGN.md §12, §13), PyTorch port of
+repro/distributed/streaming_shard.py.
 
 * **Ownership** — nodes are partitioned by a ``Placement``
   (distributed/placement.py; default range). Shard d holds the
@@ -29,6 +29,12 @@
   shards on one device write one shared walk-order ``[W, L+1]`` buffer;
   shards on different devices are reassembled by ``PAD + Σ(x − PAD)``.
   Lengths are the written cells of a row. Migration moves 3 ints a walk.
+* **Sharded serving** — ``serve_lanes_sharded`` walks one coalesced lane
+  batch: a lane starts on the owner of its start node (nodes mode) or of
+  its start edge's destination, drawn from the ts view of the whole
+  window (edges mode), and migrates every hop. Its draws are the lane's
+  own streams, so the batch equals the single-device
+  ``generate_walk_lanes`` at any shard count when nothing drops.
 
 Shards are emulated by a ``ShardGroup`` (distributed/collectives.py):
 each shard step is split at its collectives into per-shard phases, and
@@ -55,7 +61,11 @@ from repro_torch.configs.base import (
     ShardConfig,
     WalkConfig,
 )
-from repro_torch.core.distributed import exchange_by_owner, hop_resident
+from repro_torch.core.distributed import (
+    exchange_by_owner,
+    hop_resident,
+    hop_resident_lanes,
+)
 from repro_torch.core.edge_store import (
     TS_PAD,
     EdgeBatch,
@@ -63,15 +73,19 @@ from repro_torch.core.edge_store import (
     make_batch,
     stack_batches,
 )
+from repro_torch.core.samplers import index_pick_lanes
 from repro_torch.core.streaming import ReplayStats
 from repro_torch.core.temporal_index import build_index
 from repro_torch.core.walk_engine import (
     NODE_PAD,
     LaneFeatures,
+    LaneParams,
     WalkResult,
+    _lane_keys,
+    _lane_uniform,
     check_capabilities,
 )
-from repro_torch.core.window import WindowState, ingest, init_window
+from repro_torch.core.window import TsView, WindowState, ingest, init_window
 from repro_torch.distributed.collectives import (
     ShardGroup,
     make_group,
@@ -86,7 +100,11 @@ from repro_torch.distributed.placement import (
 )
 from repro_torch.obs.probes import (
     NUM_REPLAY_PROBES,
+    NUM_SERVE_PROBES,
     RP_WALKS_EMITTED,
+    SP_HOPS,
+    SP_LANES_CLAIMED,
+    SP_WALK_DROPS,
     flush_replay_probes,
     replay_probe_update,
     replay_probe_zeros,
@@ -202,6 +220,66 @@ def _shard_ingest(group: ShardGroup, wstates, bsrc, bdst, bts, bvalid, *,
     return new, x_drop
 
 
+def _claim_slots(mine: torch.Tensor, ids: torch.Tensor, Ws: int):
+    """One shard's claimed rows into its first resident slots, in row
+    order: (slot ids int32[Ws], -1 for a free slot; the count of claimed
+    rows past the last slot)."""
+    rank = torch.cumsum(mine, 0, dtype=torch.int32) - 1
+    w = torch.full((Ws + 1,), -1, dtype=torch.int32, device=mine.device)
+    w[torch.where(mine, rank, Ws).clamp(max=Ws).long()] = ids
+    return w[:Ws], (mine.sum(dtype=torch.int32) - Ws).clamp(min=0)
+
+
+def _migrate(group: ShardGroup, placement: Placement, bucket_capacity: int,
+             Ws: int, wid, moved):
+    """Send every walk that hopped (``moved[d]`` = (node, time, has) of
+    shard d's slots) to its new node's owner; dead walks free their slot,
+    their trace is already written. Returns per shard (wid, node, time,
+    alive) of the new resident slots and the walks dropped: bucket
+    overflow at the sender plus arrivals past the last slot."""
+    D = group.size
+    i32 = torch.int32
+    received, _, n_drop = exchange_by_owner(
+        group, bucket_capacity, [placement.owner(m[0]) for m in moved],
+        [m[2] for m in moved],
+        [(wid[d], moved[d][0], moved[d][1]) for d in range(D)], (-1, 0, 0))
+    out = []
+    for d in range(D):
+        r_wid, r_node, r_time = received[d]
+        dev = r_wid.device
+        inc_valid = r_wid >= 0
+        dest = torch.where(inc_valid,
+                           torch.cumsum(inc_valid, 0, dtype=i32) - 1, Ws)
+        recv_drop = (inc_valid & (dest >= Ws)).sum(dtype=i32)
+        dl = dest.clamp(max=Ws).long()
+
+        def place(fill, payload, dtype=i32):
+            buf = torch.full((Ws + 1,), fill, dtype=dtype, device=dev)
+            buf[dl] = payload
+            return buf[:Ws]
+
+        out.append((place(-1, r_wid), place(0, r_node), place(0, r_time),
+                    place(False, inc_valid, torch.bool),
+                    n_drop[d] + recv_drop))
+    return out
+
+
+def _gather_traces(group: ShardGroup, traces, rows: int):
+    """The shared trace buffers' first ``rows`` rows as (nodes, times,
+    lengths) on the first shard's device: one device's buffers as they
+    are, several devices' by ``PAD + Σ(x − PAD)`` (each cell is written
+    by one shard). Lengths are the written cells of a row."""
+    home = group.devices[0]
+    devs = list(dict.fromkeys(group.devices))
+    if len(devs) == 1:
+        nodes, times = (x[:rows] for x in traces[0])
+    else:
+        parts = [traces[group.devices.index(dv)] for dv in devs]
+        nodes, times = (NODE_PAD + sum((p[j][:rows] - NODE_PAD).to(home)
+                                       for p in parts) for j in range(2))
+    return nodes, times, (nodes != NODE_PAD).sum(1, dtype=torch.int32)
+
+
 def _shard_walks(group: ShardGroup, idxs, walk_key, wcfg: WalkConfig,
                  scfg: SamplerConfig, *, placement: Placement,
                  walk_slots: int, walk_bucket_capacity: int,
@@ -238,12 +316,8 @@ def _shard_walks(group: ShardGroup, idxs, walk_key, wcfg: WalkConfig,
         idx = idxs[d]
         # place walk w (start node w % nc) on its start node's owner
         w_all = torch.arange(W, dtype=i32, device=dev)
-        mine = placement.owner(w_all % nc) == d
-        rankm = torch.cumsum(mine, 0, dtype=i32) - 1
-        w = torch.full((Ws + 1,), -1, dtype=i32, device=dev)
-        w[torch.where(mine, rankm, Ws).clamp(max=Ws).long()] = w_all
-        w = w[:Ws]
-        drops.append((mine.sum(dtype=i32) - Ws).clamp(min=0))
+        w, drop = _claim_slots(placement.owner(w_all % nc) == d, w_all, Ws)
+        drops.append(drop)
         v = torch.where(w >= 0, w % nc, 0)
         vc = v.clamp(0, nc - 1).long()
         deg = idx.node_starts[vc + 1] - idx.node_starts[vc]
@@ -282,46 +356,123 @@ def _shard_walks(group: ShardGroup, idxs, walk_key, wcfg: WalkConfig,
     # L-1 migrating hops, then one hop that only records: the last hop's
     # migration would place walks nobody advances
     for step in range(max(L - 1, 0)):
-        moved = record_hop(step)
-        # migrate surviving walks to their new owner; dead walks just free
-        # their slot, their trace is already written
-        received, _, n_drop = exchange_by_owner(
-            group, walk_bucket_capacity,
-            [placement.owner(m[0]) for m in moved], [m[2] for m in moved],
-            [(wid[d], moved[d][0], moved[d][1]) for d in range(D)],
-            (-1, 0, 0))
-        for d in range(D):
-            r_wid, r_node, r_time = received[d]
-            dev = r_wid.device
-            inc_valid = r_wid >= 0
-            dest = torch.where(inc_valid,
-                               torch.cumsum(inc_valid, 0, dtype=i32) - 1, Ws)
-            recv_drop = (inc_valid & (dest >= Ws)).sum(dtype=i32)
-            dl = dest.clamp(max=Ws).long()
-
-            def place(fill, payload, dtype=i32):
-                buf = torch.full((Ws + 1,), fill, dtype=dtype, device=dev)
-                buf[dl] = payload
-                return buf[:Ws]
-
-            wid[d] = place(-1, r_wid)
-            node[d] = place(0, r_node)
-            cur_time[d] = place(0, r_time)
-            alive[d] = place(False, inc_valid, torch.bool)
-            drops[d] = drops[d] + n_drop[d] + recv_drop
+        moved = _migrate(group, placement, walk_bucket_capacity, Ws, wid,
+                         record_hop(step))
+        for d, (w, v, t, a, dropped) in enumerate(moved):
+            wid[d], node[d], cur_time[d], alive[d] = w, v, t, a
+            drops[d] = drops[d] + dropped
     if L >= 1:
         record_hop(L - 1)
+    return _gather_traces(group, traces, W) + (drops, hops)
 
-    home = group.devices[0]
-    devs = list(dict.fromkeys(group.devices))
-    if len(devs) == 1:
-        nodes, times = (x[:W] for x in traces[0])
-    else:
-        parts = [traces[group.devices.index(dv)] for dv in devs]
-        nodes, times = (NODE_PAD + sum((p[j][:W] - NODE_PAD).to(home)
-                                       for p in parts) for j in range(2))
-    lengths = (nodes != NODE_PAD).sum(1, dtype=i32)
-    return nodes, times, lengths, drops, hops
+
+def _shard_walk_lanes(group: ShardGroup, idxs, views, lanes, draws,
+                      wcfg: WalkConfig, *, placement: Placement,
+                      walk_slots: int, walk_bucket_capacity: int):
+    """One coalesced lane batch's walks over the sharded window.
+
+    The serving twin of ``_shard_walks``. ``views``, ``lanes`` and
+    ``draws`` hold one copy per shard of the ts view, the ``LaneParams``
+    and the lanes' uniforms (row t: tag t of every lane), so any shard
+    can evaluate any lane's next draw; each lane is claimed by exactly
+    one shard per step (its current node's owner), so every trace cell is
+    written by at most one shard and the traces are the single-device
+    ``generate_walk_lanes`` result.
+
+    Start claims: nodes mode places lane i on owner(start_node[i]) when
+    the node has in-window out-edges (the owner holds its full degree);
+    edges mode computes the global start-edge pick from the view, bitwise
+    the single-device pick since the view's store is, and places the lane
+    on owner(dst). Migration carries 3 ints (lane id, node, time); the
+    bias, budget and draws are recovered by lane id at every hop.
+
+    Returns (nodes, times, lengths) on the first shard's device and, per
+    shard, the lanes dropped (start slots and migration), the start lanes
+    claimed and the hop cells executed.
+    """
+    D = group.size
+    S, L = wcfg.num_walks, wcfg.max_length
+    nc = idxs[0].node_capacity
+    Ws = walk_slots
+    i32 = torch.int32
+    edges_mode = wcfg.start_mode == "edges"
+    # edges mode: the start draw (tag 0) writes two cells, L-1 hops follow
+    hops_n, offset = (max(L - 1, 0), 1) if edges_mode else (L, 0)
+
+    traces = _per_device(group, lambda dev: tuple(
+        torch.full((S + 1, L + 1), NODE_PAD, dtype=i32, device=dev)
+        for _ in range(2)))
+    wid, node, cur_time, alive, drops, claims, hops = ([] for _ in range(7))
+    for d in range(D):
+        dev = group.devices[d]
+        lane, gstore = lanes[d], views[d].store
+        lane_ids = torch.arange(S, dtype=i32, device=dev)
+        tn, tt = traces[d]
+        if edges_mode:
+            n_glob = gstore.num_edges.to(i32).expand(S)
+            e = index_pick_lanes(lane.start_bias, draws[d][0], n_glob)
+            e = e.clamp(0, gstore.capacity - 1).long()
+            s_src, s_cur, s_ts = gstore.src[e], gstore.dst[e], gstore.ts[e]
+            mine = (lane.active & (gstore.num_edges > 0)
+                    & (placement.owner(s_cur) == d))
+            row0 = torch.where(mine, lane_ids, S).long()
+            tn[row0, 0] = s_src
+            tt[row0, 0] = s_ts
+            tn[row0, 1] = s_cur
+            tt[row0, 1] = s_ts
+            start_node, start_time = s_cur, s_ts
+        else:
+            v = lane.start_node
+            vc = v.clamp(0, nc - 1)
+            deg = (idxs[d].node_starts[vc.long() + 1]
+                   - idxs[d].node_starts[vc.long()])
+            t_floor = torch.where(gstore.num_edges > 0, gstore.ts[0] - 1, 0)
+            mine = (lane.active & (v >= 0) & (v < nc) & (deg > 0)
+                    & (placement.owner(vc) == d))
+            row0 = torch.where(mine, lane_ids, S).long()
+            start_node, start_time = vc, t_floor.to(i32).expand(S)
+            tn[row0, 0] = start_node
+            tt[row0, 0] = start_time
+        claims.append(mine.sum(dtype=i32))
+        w, drop = _claim_slots(mine, lane_ids, Ws)
+        wc = w.clamp(0, S - 1).long()
+        wid.append(w)
+        node.append(torch.where(w >= 0, start_node[wc], 0))
+        cur_time.append(torch.where(w >= 0, start_time[wc], 0))
+        alive.append(w >= 0)
+        drops.append(drop)
+        hops.append(torch.zeros((), dtype=i32, device=dev))
+
+    def record_hop(step: int):
+        # the lane's draw of tag step + 1 (tag 0 was the start draw) and
+        # its bias and budget, recovered by lane id
+        write = step + offset + 1
+        out = []
+        for d in range(D):
+            wc = wid[d].clamp(0, S - 1).long()
+            lane = lanes[d]
+            nn, nt, has = hop_resident_lanes(
+                idxs[d], lane.bias[wc], node[d], cur_time[d], alive[d],
+                draws[d][step + 1][wc])
+            has = has & (write <= lane.max_len[wc])
+            tn, tt = traces[d]
+            row = torch.where(has, wid[d], S).long()
+            tn[row, write] = nn
+            tt[row, write] = nt
+            hops[d] = hops[d] + has.sum(dtype=i32)
+            out.append((nn, nt, has))
+        return out
+
+    # hops-1 migrating hops and one that only records, as in _shard_walks
+    for step in range(max(hops_n - 1, 0)):
+        moved = _migrate(group, placement, walk_bucket_capacity, Ws, wid,
+                         record_hop(step))
+        for d, (w, v, t, a, dropped) in enumerate(moved):
+            wid[d], node[d], cur_time[d], alive[d] = w, v, t, a
+            drops[d] = drops[d] + dropped
+    if hops_n >= 1:
+        record_hop(hops_n - 1)
+    return _gather_traces(group, traces, S) + (drops, claims, hops)
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +516,12 @@ def ingest_sharded(state: ShardedWindowState, bsrc, bdst, bts, count, *,
             x + dx for x, dx in zip(state.exchange_drops, x_drop)))
 
 
+# the reference's non-donating twin, which the sharded serving snapshot
+# double buffer advances through: the port's ingest_sharded already
+# writes nothing it was given
+ingest_sharded_nodonate = ingest_sharded
+
+
 # ---------------------------------------------------------------------------
 # Sharded replay: every batch on the device, one read back at the end
 # ---------------------------------------------------------------------------
@@ -387,6 +544,59 @@ def _check_supported(wcfg: WalkConfig, scfg: SamplerConfig, *,
             f"{wcfg.start_mode!r})")
     check_capabilities(scfg, "grouped",
                        LaneFeatures() if lanes else None, sharded=True)
+
+
+def serve_lanes_sharded(state: ShardedWindowState, view: TsView, key,
+                        lanes: LaneParams, *, mesh: ShardGroup,
+                        node_capacity: int, wcfg: WalkConfig,
+                        scfg: SamplerConfig, shard_cfg: ShardConfig,
+                        placement: Optional[Placement] = None,
+                        with_probes: bool = False):
+    """One coalesced lane batch over the node-partitioned window.
+
+    ``state`` is the sharded window (read, never written: the serving
+    snapshot keeps it readable across launches), ``view`` the ts view of
+    the same window version, ``key`` the service's stable base key and
+    ``lanes`` the packed per-lane params on the first shard's device.
+    Returns (nodes, times, lengths, drops, claims) on that device: the
+    walks shaped like the single-device ``generate_walk_lanes`` result,
+    and two int32[D] counters, ``drops`` (start-slot + migration
+    overflow; 0 under healthy provisioning, as the bit-identity guarantee
+    needs) and ``claims`` (start lanes claimed by each shard, the source
+    of ``ServeStats.lanes_by_shard`` in both start modes).
+    ``with_probes=True`` appends the serve-probe matrix int32[D,
+    NUM_SERVE_PROBES] (claims, drops, hop cells per shard) for
+    ``obs.flush_serve_probes``; the walks do not change. Reads nothing
+    back to the host.
+    """
+    _check_supported(wcfg, scfg, lanes=True)
+    D = mesh.size
+    if placement is None:
+        placement = RangePlacement(num_shards=D, node_capacity=node_capacity)
+    home = mesh.devices[0]
+    # every draw of the batch at once: row t is tag t (the start draw,
+    # then one per hop) of each lane, the single-device lane streams
+    lane_keys = _lane_keys(key, lanes)
+    tags = torch.arange(wcfg.max_length + 1, device=lane_keys.device)
+    draws = mesh.replicate(_lane_uniform(lane_keys, tags[:, None]))
+    nodes, times, lengths, drops, claims, hops = _shard_walk_lanes(
+        mesh, [w.index for w in state.window],
+        _per_device(mesh, lambda dev: tree_to(view, dev)),
+        _per_device(mesh, lambda dev: tree_to(lanes, dev)), draws, wcfg,
+        placement=placement, walk_slots=shard_cfg.walk_slots,
+        walk_bucket_capacity=shard_cfg.walk_bucket_capacity)
+
+    def stack(xs):
+        return torch.stack([x.to(home) for x in xs])
+    outs = (nodes, times, lengths, stack(drops), stack(claims))
+    if with_probes:
+        sp = torch.zeros((D, NUM_SERVE_PROBES), dtype=torch.int32,
+                         device=home)
+        sp[:, SP_LANES_CLAIMED] = outs[4]
+        sp[:, SP_WALK_DROPS] = outs[3]
+        sp[:, SP_HOPS] = stack(hops)
+        outs = outs + (sp,)
+    return outs
 
 
 def _replay_scan_sharded(state: ShardedWindowState, bsrc, bdst, bts, bcount,

@@ -12,7 +12,8 @@ Three schema-tagged document shapes, each with a hand-rolled validator
   sum / min / max / p50 / p90 / p99 over their bounded reservoirs.
 * ``tempest-health/v1`` (``health_snapshot``/``validate_health``) — the
   live streaming-health view assembled from registry metrics (plus an
-  optional service for its live queue and latency view): ingest progress,
+  optional sharded engine for fresh per-shard loads and an optional
+  service for its live queue and latency view): ingest progress,
   window occupancy + eviction rate, per-shard load/drift, dispatch-tier
   mix, serve p50/p99, and the consolidated drop taxonomy.
 * ``tempest-bench/v1`` (``bench_doc``/``validate_bench``) — one schema
@@ -208,14 +209,15 @@ def _hist_summary(registry, name: str) -> dict:
 
 
 def health_snapshot(registry: Optional[MetricsRegistry] = None, *,
-                    service=None) -> dict:
+                    engine=None, service=None) -> dict:
     """Assemble the live streaming-health document (``tempest-health/v1``).
 
-    Reads the registry only; ``service`` (a ``WalkService``) refreshes
-    queue depth and latency percentiles from its live stats view. The
-    per-shard section reads the registry's ``shard_edges_active`` series,
-    which a sharded replay writes (``DistributedStreamingEngine``); the
-    reference's ``engine=`` refresh is not yet ported.
+    Reads the registry only; ``engine`` (a ``DistributedStreamingEngine``
+    or anything exposing ``shard_loads()``) refreshes per-shard resident
+    loads at snapshot time, else they come from the registry's
+    ``shard_edges_active`` series that a sharded replay writes; ``service``
+    (a ``WalkService``) refreshes queue depth and latency percentiles from
+    its live stats view.
     """
     reg = registry if registry is not None else get_registry()
 
@@ -237,8 +239,12 @@ def health_snapshot(registry: Optional[MetricsRegistry] = None, *,
         "eviction_rate": (evicted / ingested) if ingested else 0.0,
     }
 
-    per_shard = {k: int(v) for k, v in sorted(
-        _series_by_label(reg, "shard_edges_active", "shard").items())}
+    if engine is not None and hasattr(engine, "shard_loads"):
+        loads = np.asarray(engine.shard_loads(), dtype=np.int64)
+        per_shard = {str(d): int(v) for d, v in enumerate(loads)}
+    else:
+        per_shard = {k: int(v) for k, v in sorted(
+            _series_by_label(reg, "shard_edges_active", "shard").items())}
     if per_shard:
         vals = np.asarray(list(per_shard.values()), dtype=np.float64)
         mean = float(vals.mean())
@@ -312,9 +318,9 @@ def validate_health(doc: dict) -> dict:
 
 
 def dump_health(path: str, registry: Optional[MetricsRegistry] = None, *,
-                service=None) -> dict:
+                engine=None, service=None) -> dict:
     """Write a validated health snapshot to ``path``; returns the doc."""
-    doc = health_snapshot(registry, service=service)
+    doc = health_snapshot(registry, engine=engine, service=service)
     with open(path, "w") as f:
         json.dump(doc, f, indent=2, sort_keys=True)
         f.write("\n")

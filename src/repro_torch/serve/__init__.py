@@ -1,5 +1,5 @@
-"""Walk-query serving (DESIGN.md §11, §18), PyTorch port of repro/serve
-for one device.
+"""Walk-query serving (DESIGN.md §11, §13, §18), PyTorch port of
+repro/serve.
 
 * ``WalkQuery`` / ``QueryResult`` — the request model (per-request bias,
   max length, seed, start nodes).
@@ -7,19 +7,22 @@ for one device.
   fixed-shape ``generate_walk_lanes`` batch, plus result slicing.
 * ``SnapshotManager`` — window double buffer: serve against a consistent
   snapshot while the next ingest builds.
+* ``ShardedSnapshotManager`` — the same protocol over a node-partitioned
+  window and the ts view of the whole window (DESIGN.md §13).
 * ``WalkService`` — the service loop: fixed-capacity queue with
   backpressure + drop accounting, FIFO/EDF coalescing, p50/p99 latency
-  and walks/s stats, and the async in-flight ring (``tick``/``pump``).
+  and walks/s stats, and the async in-flight ring (``tick``/``pump``);
+  one device by default, node-partitioned with ``num_shards``/``mesh``
+  (or ``ServeConfig.num_shards``).
 
 Alias-table (bias "table") and second-order (node2vec) queries run on
-the grouped and fullwalk paths. Sharded serving (the reference's
-``ShardedSnapshotManager``, ``PinnedShardedSnapshot``, ``lane_owners``)
-is not yet ported.
+one device, on the grouped and fullwalk paths.
 """
 from repro_torch.serve.coalescer import (
     LaneSlice,
     bucketize,
     group_key,
+    lane_owners,
     pack_queries,
     slice_result,
 )
@@ -30,10 +33,16 @@ from repro_torch.serve.service import (
     ServeStats,
     WalkService,
 )
-from repro_torch.serve.snapshot import PinnedSnapshot, SnapshotManager
+from repro_torch.serve.snapshot import (
+    PinnedShardedSnapshot,
+    PinnedSnapshot,
+    ShardedSnapshotManager,
+    SnapshotManager,
+)
 
 __all__ = [
-    "LaneSlice", "bucketize", "group_key", "pack_queries", "slice_result",
-    "QueryResult", "WalkQuery", "OversizeQuery", "QueueFull", "ServeStats",
-    "WalkService", "PinnedSnapshot", "SnapshotManager",
+    "LaneSlice", "bucketize", "group_key", "lane_owners", "pack_queries",
+    "slice_result", "QueryResult", "WalkQuery", "OversizeQuery",
+    "QueueFull", "ServeStats", "WalkService", "PinnedShardedSnapshot",
+    "PinnedSnapshot", "ShardedSnapshotManager", "SnapshotManager",
 ]

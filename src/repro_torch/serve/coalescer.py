@@ -6,7 +6,9 @@
 * **lane packing** — queries are laid out back to back along the walk
   axis; surplus bucket lanes are inactive (``LaneParams.active``);
 * **result slicing** — each query's rows are sliced back out and trimmed
-  to its own ``max_length + 1`` columns.
+  to its own ``max_length + 1`` columns;
+* **lane owners** — ``lane_owners``, the host mirror of sharded
+  serving's start claims.
 
 ``pack_queries`` lays the lane arrays out on the host exactly as the
 reference does, then moves them to the device in one copy: from pinned
@@ -112,6 +114,16 @@ def slice_result(nodes: np.ndarray, times: np.ndarray, lengths: np.ndarray,
     rows = slice(sl.offset, sl.offset + sl.count)
     return (nodes[rows, :cols].copy(), times[rows, :cols].copy(),
             lengths[rows].copy())
+
+
+def lane_owners(params: LaneParams, placement) -> np.ndarray:
+    """Owner shard of each start lane in a packed nodes-mode batch: the
+    sharded claim rule's host mirror, ``placement.owner_np`` over the
+    clipped start node, so it equals the device rule for every policy.
+    Padding lanes map to -1."""
+    v = np.clip(params.start_node.cpu().numpy(), 0,
+                placement.node_capacity - 1)
+    return np.where(params.active.cpu().numpy(), placement.owner_np(v), -1)
 
 
 def result_arrays(res: WalkResult):

@@ -1,5 +1,5 @@
 """Multi-tenant walk-query service over the streaming window (DESIGN.md
-§11, §18), PyTorch port of repro/serve/service.py for one device.
+§11, §13, §18), PyTorch port of repro/serve/service.py.
 
 Many callers submit small heterogeneous ``WalkQuery``s; the service
 queues them (fixed capacity, backpressure by drop + accounting),
@@ -35,8 +35,16 @@ with ``bias="table"`` or a ``table_weight`` keeps alias tables in the
 snapshot buffers (rebuilt incrementally by each ``begin_ingest``), so
 table-coded queries draw from them; they and second-order (node2vec)
 queries run on the ``grouped`` and ``fullwalk`` paths, as in the
-reference. Sharded serving (``num_shards``/``mesh``) is not yet ported:
-it raises ``NotImplementedError``.
+reference.
+
+**Sharded serving** (DESIGN.md §13): with ``ServeConfig.num_shards > 0``
+(or an explicit ``mesh``/``num_shards``) the same service runs against a
+node-partitioned window: the snapshots double-buffer a
+``ShardedWindowState`` and its ts view, and each coalesced batch runs
+through ``serve_lanes_sharded`` (start lanes claimed by their owner
+shards, per-hop migration), with the same bit-identity against
+single-device solo runs. Its drop, claim and probe counters stay on the
+device until the batch's harvest.
 """
 from __future__ import annotations
 
@@ -57,12 +65,13 @@ from repro_torch.core.edge_store import make_batch
 from repro_torch.core.walk_engine import (
     LaneFeatures,
     LaneParams,
-    WalkResult,
     check_capabilities,
     generate_walk_lanes,
 )
 from repro_torch.core.window import WindowState, init_window
+from repro_torch.distributed.streaming_shard import serve_lanes_sharded
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs.probes import NUM_SERVE_PROBES, flush_serve_probes
 from repro_torch.obs.registry import (
     RESERVOIR_SIZE,
     MetricsRegistry,
@@ -79,7 +88,11 @@ from repro_torch.serve.coalescer import (
     slice_result,
 )
 from repro_torch.serve.query import QueryResult, WalkQuery
-from repro_torch.serve.snapshot import SnapshotManager
+from repro_torch.serve.snapshot import (
+    ShardedSnapshotManager,
+    SnapshotManager,
+    ready_event,
+)
 
 
 class QueueFull(RuntimeError):
@@ -106,12 +119,14 @@ class _Pending:
 @dataclass
 class _InFlight:
     """One launched, unharvested batch of the async ring. ``raw`` holds the
-    device outputs, which only ``pump`` reads back; ``ready`` is the CUDA
-    event recorded after the batch's last kernel (None on the CPU, where
-    the batch is done when the launch returns); ``version`` is the
-    snapshot version the batch was pinned to."""
+    device outputs (a ``WalkResult`` on one device, the
+    ``serve_lanes_sharded`` tuple sharded), which only ``pump`` reads
+    back; ``ready`` is the CUDA event recorded after the batch's last
+    kernel (None on the CPU, where the batch is done when the launch
+    returns); ``version`` is the snapshot version the batch was pinned
+    to."""
 
-    raw: WalkResult
+    raw: object
     ready: Optional[torch.cuda.Event]
     taken: List[_Pending]
     slices: List[object]
@@ -146,6 +161,14 @@ class ServeStats:
     busy_s: float = 0.0             # total launch->harvest wall time; with
     #   max_inflight > 1 the intervals overlap, so busy_s can exceed wall
     #   time and walks_per_s under-reports the overlapped rate
+    shard_walk_drops: int = 0       # sharded: capacity-overflow lanes
+    exchange_drops: int = 0         # sharded: ingest-exchange drops
+    # ^ cumulative; both refresh at every harvest (exchange_drops also at
+    #   publish). Bit-identity needs both at zero: walk drops lose lanes,
+    #   exchange drops lose window edges.
+    lanes_by_shard: Dict[int, int] = field(default_factory=dict)
+    # ^ sharded, both start modes: start lanes claimed per owner shard,
+    #   counted on the device by serve_lanes_sharded
     latencies_s: Reservoir = field(
         default_factory=lambda: Reservoir(STATS_WINDOW))
     sample_s: Reservoir = field(
@@ -185,11 +208,16 @@ class ServeStats:
 
 
 class WalkService:
-    """Walk-query serving over a snapshot double-buffered window on one
+    """Walk-query serving over a snapshot double-buffered window, on one
     device (CUDA unless ``device`` names another, or the device of a
-    ``state`` given). ``probes`` is the reference's switch for the sharded
-    serving probe matrix (``obs.flush_serve_probes``); a single-device
-    service has none, as in the reference.
+    ``state`` given) or sharded (``num_shards``, ``ServeConfig.num_shards``
+    or ``mesh``): ``mesh`` is a ``ShardGroup``, else the shards are the
+    first ``num_shards`` visible CUDA devices, or ``num_shards`` shards on
+    ``device`` when one is named. ``placement`` (sharded only) routes
+    ingest and lane claims, by default ``cfg.shard.placement``.
+    ``probes`` switches the sharded serving probe matrix
+    (``obs.flush_serve_probes``); a single-device service has none, as in
+    the reference.
 
     The service owns a ``SnapshotManager`` (feed it edges via ``ingest`` /
     ``begin_ingest`` + ``publish``) and a fixed-capacity queue of pending
@@ -229,33 +257,52 @@ class WalkService:
         # alias-table maintenance
         self._table = spec_from_sampler(cfg.sampler)
         self._rebuilt_seen = 0
+        ns = num_shards or serve_cfg.num_shards
+        self.sharded = mesh is not None or ns > 0
         # every serving batch is a per-lane batch: validate the config
-        # against lane capabilities up front. Sharded serving is not yet
-        # ported.
+        # against lane capabilities up front
         check_capabilities(cfg.sampler, self.sched_cfg.path, LaneFeatures(),
-                           sharded=mesh is not None or (
-                               num_shards or serve_cfg.num_shards) > 0,
+                           sharded=self.sharded,
                            have_tables=self._table is not None)
         self.probes = probes
-        if placement is not None:
-            raise ValueError("placement= requires sharded serving "
-                             "(num_shards > 0 or mesh=)")
         self.registry = registry if registry is not None else get_registry()
-        self.device = (state.index.ns_ts.device
-                       if state is not None and device is None
-                       else resolve_device(device))
-        self.batch_capacity = batch_capacity
-        self.snapshots = SnapshotManager(
-            state if state is not None else init_window(
-                cfg.window.edge_capacity, cfg.window.node_capacity,
-                int(cfg.window.duration), table=self._table,
-                device=self.device),
-            cfg.window.node_capacity, registry=self.registry,
-            table=self._table)
+        if self.sharded:
+            if state is not None:
+                raise ValueError(
+                    "sharded serving builds its own node-partitioned "
+                    "window; the state= override is single-device only")
+            self.snapshots = ShardedSnapshotManager(
+                cfg, batch_capacity, mesh=mesh, num_shards=ns,
+                devices=None if device is None
+                else [resolve_device(device)] * ns,
+                placement=placement, registry=self.registry)
+            self.device = self.snapshots.home
+            self.batch_capacity = self.snapshots.batch_capacity
+            self.num_shards = self.snapshots.num_shards
+        else:
+            if placement is not None:
+                raise ValueError("placement= requires sharded serving "
+                                 "(num_shards > 0 or mesh=)")
+            self.device = (state.index.ns_ts.device
+                           if state is not None and device is None
+                           else resolve_device(device))
+            self.batch_capacity = batch_capacity
+            self.num_shards = 0
+            self.snapshots = SnapshotManager(
+                state if state is not None else init_window(
+                    cfg.window.edge_capacity, cfg.window.node_capacity,
+                    int(cfg.window.duration), table=self._table,
+                    device=self.device),
+                cfg.window.node_capacity, registry=self.registry,
+                table=self._table)
+        self.placement = self.snapshots.placement if self.sharded else None
         # NOT split per call: lane RNG identity lives in (seed, walk, step)
         # folds, and solo/coalesced bit-equality needs a stable base
         self.base_key = prng.PRNGKey(cfg.seed)
         self.stats = ServeStats()
+        # drop-delta baseline: stats.exchange_drops is cumulative and may
+        # be reset by callers, the registry needs monotonic deltas
+        self._exchange_drops_seen = 0
         self._pending: Deque[_Pending] = deque()
         self._inflight: Deque[_InFlight] = deque()
         self._results: Dict[int, QueryResult] = {}
@@ -285,7 +332,9 @@ class WalkService:
             self.snapshots.publish()
         self.registry.set_gauge("snapshot_version", self.snapshots.version,
                                 help="published serving snapshot version")
-        if self.snapshots.current.tables is not None:
+        if self.sharded:
+            self._refresh_exchange_drops()
+        elif self.snapshots.current.tables is not None:
             # incremental maintenance work per advance (publish has
             # already waited for the ingest)
             rebuilt = int(self.snapshots.current.tables.rebuilt)
@@ -294,6 +343,19 @@ class WalkService:
                               help="alias-table node rebuilds performed by "
                                    "incremental window maintenance")
             self._rebuilt_seen = rebuilt
+
+    def _refresh_exchange_drops(self, total: Optional[int] = None) -> None:
+        """Pull the sharded ingest's cumulative exchange-drop count
+        (``total``, read from the device if not given) into the stats
+        view and the registry. Called at every publish and harvest, so
+        ``exchange_drops`` advances in lockstep with
+        ``shard_walk_drops``."""
+        if total is None:
+            total = sum(int(x) for x in self.snapshots.state.exchange_drops)
+        self.stats.exchange_drops = total
+        count_drop(self.registry, "exchange_clip",
+                   max(0, total - self._exchange_drops_seen))
+        self._exchange_drops_seen = max(total, self._exchange_drops_seen)
 
     # ------------------------------------------------------------------
     # Query side
@@ -323,7 +385,9 @@ class WalkService:
                 self.cfg.sampler, self.sched_cfg.path,
                 LaneFeatures(table=query.bias == "table",
                              second_order=query.second_order),
-                have_tables=self.snapshots.current.tables is not None)
+                sharded=self.sharded,
+                have_tables=(not self.sharded
+                             and self.snapshots.current.tables is not None))
         now = time.perf_counter()
         self._evict_expired(now)
         if self._oversize(query):
@@ -442,24 +506,60 @@ class WalkService:
         return self._form_batch(time.perf_counter(), force=True)
 
     def _launch_lanes(self, params: LaneParams, wcfg: WalkConfig, pin,
-                      use_tables: bool = False,
-                      second_order: bool = False) -> WalkResult:
+                      use_tables: bool = False, second_order: bool = False):
         """Enqueue one packed lane batch against the pinned snapshot
-        without waiting for it. ``use_tables``/``second_order`` say whether
-        a lane of the batch is coded "table" / has (p, q) != (1, 1); a
-        batch without such lanes runs the first-order program."""
+        without waiting for it; returns the raw device outputs (a
+        ``WalkResult`` on one device, the ``serve_lanes_sharded`` tuple
+        sharded). ``use_tables``/``second_order`` say whether a lane of
+        the batch is coded "table" / has (p, q) != (1, 1); a batch without
+        such lanes runs the first-order program. Submit-time validation
+        keeps both False when sharded."""
+        if self.sharded:
+            snap = self.snapshots
+            return serve_lanes_sharded(
+                pin.state, pin.view, self.base_key, params, mesh=snap.mesh,
+                node_capacity=self.cfg.window.node_capacity, wcfg=wcfg,
+                scfg=self.cfg.sampler, shard_cfg=self.cfg.shard,
+                placement=snap.placement, with_probes=self.probes)
         snap = pin.state
         return generate_walk_lanes(snap.index, self.base_key, params, wcfg,
                                    self.cfg.sampler, self.sched_cfg,
                                    tables=snap.tables if use_tables else None,
                                    second_order=second_order)
 
+    def _materialize(self, raw):
+        """Bring one launched batch to the host: its (nodes, times,
+        lengths) arrays, and when sharded the drop, claim and probe
+        counters (and the exchange drops) in the same copy as the
+        lengths, at this, the batch's only, host sync."""
+        if not self.sharded:
+            return result_arrays(raw)
+        nodes, times, lengths, drops, claims = raw[:5]
+        S, D = lengths.shape[0], self.num_shards
+        words = [lengths, drops, claims]
+        if self.probes:
+            xdrops = self.snapshots.state.exchange_drops
+            words += [raw[5].reshape(-1),
+                      torch.stack([x.to(self.device) for x in xdrops])]
+        host = torch.cat(words).cpu().numpy()
+        drops_h, claims_h = host[S:S + D], host[S + D:S + 2 * D]
+        self.stats.shard_walk_drops += int(drops_h.sum())
+        if self.probes:
+            flush_serve_probes(self.registry, host[S + 2 * D:-D].reshape(
+                D, NUM_SERVE_PROBES))
+            self._refresh_exchange_drops(int(host[-D:].sum()))
+        for d, n in enumerate(claims_h):
+            if n:
+                self.stats.lanes_by_shard[d] = \
+                    self.stats.lanes_by_shard.get(d, 0) + int(n)
+        return nodes.cpu().numpy(), times.cpu().numpy(), host[:S]
+
     def _dispatch_lanes(self, params: LaneParams, wcfg: WalkConfig,
                         use_tables: bool = False,
                         second_order: bool = False):
         """Blocking form (the solo path): launch one lane batch against the
         current snapshot and bring its arrays to the host."""
-        return result_arrays(self._launch_lanes(
+        return self._materialize(self._launch_lanes(
             params, wcfg, self.snapshots.acquire(), use_tables=use_tables,
             second_order=second_order))
 
@@ -488,10 +588,7 @@ class WalkService:
                 params, wcfg, pin,
                 use_tables=any(q.bias == "table" for q in queries),
                 second_order=any(q.second_order for q in queries))
-            ready = None
-            if self.device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record()
+            ready = ready_event(self.device)
         self._inflight.append(_InFlight(
             raw=raw, ready=ready, taken=list(taken), slices=list(slices),
             lane_bucket=lane_bucket, lanes=lanes, version=pin.version,
@@ -519,7 +616,7 @@ class WalkService:
     def _harvest(self, fl: _InFlight) -> int:
         """Bring one in-flight batch to the host and deliver its results."""
         reg = self.registry
-        nodes, times, lengths = result_arrays(fl.raw)
+        nodes, times, lengths = self._materialize(fl.raw)
         done_t = time.perf_counter()
         elapsed = done_t - fl.t0
         self.stats.sample_s.append(elapsed)
@@ -627,7 +724,8 @@ class WalkService:
     def run_query_solo(self, query: WalkQuery):
         """Run one query alone at its exact shape (no coalescing, no
         bucketing) against the current snapshot: bit-identical to the same
-        query served coalesced. Accounted into ``solo_queries`` and the
+        query served coalesced (and, sharded, to the single-device
+        service's solo run). Accounted into ``solo_queries`` and the
         shared walks / hops / busy_s totals, not into the queue/latency
         stats."""
         params, (sl,) = pack_queries([query], query.num_lanes,

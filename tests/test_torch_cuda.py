@@ -473,3 +473,94 @@ def test_sharded_walks_card_equal_cpu(card, path):
     for f in ("nodes", "times", "lengths"):
         np.testing.assert_array_equal(getattr(out["cuda"], f).cpu().numpy(),
                                       getattr(out["cpu"], f).numpy())
+
+
+@pytest.mark.parametrize("D,kind", [(2, "hash"), (4, "range")])
+def test_sharded_serving_card_equals_cpu(card, D, kind):
+    """The same queries through ``WalkService(num_shards=D)`` on the card
+    and on the CPU, with batch 4 ingested while serving: equal tickets and
+    versions, equal per-shard claims, no drops; each ``begin_ingest``
+    launches ``weight_prefix`` twice per shard on the card."""
+    from repro_torch.configs.base import ServeConfig, ShardConfig
+    from repro_torch.distributed.placement import make_placement
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.serve import WalkQuery, WalkService
+    g = powerlaw_temporal_graph(512, 1 << 15, seed=2, t_max=100_000)
+    batches = list(chronological_batches(g, 4))
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 15,
+                            node_capacity=512),
+        sampler=SamplerConfig(mode="index"),
+        scheduler=SchedulerConfig(path="grouped"),
+        shard=ShardConfig(edge_capacity_per_shard=1 << 15,
+                          exchange_capacity=1 << 13, walk_slots=2048,
+                          walk_bucket_capacity=2048))
+    rng = np.random.default_rng(4)
+    queries = [WalkQuery(start_nodes=tuple(int(v) for v in rng.integers(
+                   0, 512, 16)), bias=b, max_length=12, seed=i)
+               for i, b in enumerate(("uniform", "linear", "exponential"))]
+    queries += [WalkQuery(num_walks=24, start_mode="edges", bias=b,
+                          max_length=9, seed=10 + i)
+                for i, b in enumerate(("linear", "exponential"))]
+    out = {}
+    for d in ("cuda", "cpu"):
+        svc = WalkService(cfg, ServeConfig(), batch_capacity=1 << 13,
+                          num_shards=D, device=d,
+                          placement=make_placement(kind, D, 512),
+                          registry=MetricsRegistry())
+        for b in batches[:3]:
+            svc.ingest(*b)
+        first = [svc.submit(q) for q in queries]
+        svc.tick()
+        runtime.reset_launches()
+        svc.begin_ingest(*batches[3])
+        if d == "cuda":
+            assert runtime.LAUNCHES["weight_prefix"] == 2 * D
+        svc.publish()
+        second = [svc.submit(q) for q in queries]
+        svc.pump(block=True)
+        while svc.pending_count:
+            svc.step()
+        out[d] = ([svc.poll(t) for t in first + second],
+                  dict(svc.stats.lanes_by_shard))
+        assert svc.stats.shard_walk_drops == svc.stats.exchange_drops == 0
+    assert out["cuda"][1] == out["cpu"][1]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert a.snapshot_version == b.snapshot_version
+        for f in ("nodes", "times", "lengths"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_sharded_checkpoint_round_trip_from_card(card, tmp_path):
+    """A sharded window checkpointed from the card restores on the card
+    byte-equal and equal to its CPU restore; an elastic restore 4 → 2 on
+    the card equals the same restore on the CPU, and the restored engine
+    replays on as the CPU one does."""
+    from repro_torch.distributed.fault_tolerance import WindowCheckpointer
+    from repro_torch.train import checkpoint as ckpt
+    g = powerlaw_temporal_graph(512, 1 << 15, seed=2, t_max=100_000)
+    batches = list(chronological_batches(g, 4))
+    wcfg = WalkConfig(num_walks=1024, max_length=12, start_mode="all_nodes")
+    eng = _sharded_engine("cuda", 4)
+    eng.replay_device(batches[:2], wcfg)
+    saver = WindowCheckpointer(str(tmp_path))
+    saver.save(eng, 2)
+    restored = {d: ckpt.restore_sharded_window(saver.window_dir,
+                                               devices=[d] * 4)
+                for d in ("cuda", "cpu")}
+    for state, _, key in restored.values():
+        assert torch.equal(key, eng.key)
+        for a, b in zip(ckpt._flatten_with_paths(state),
+                        ckpt._flatten_with_paths(eng.state)):
+            assert torch.equal(a[1].cpu(), b[1].cpu()), a[0]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        e2 = saver.restore_engine(eng.cfg, 1 << 13, num_shards=2,
+                                  devices=[d] * 4)
+        assert e2.num_shards == 2 and e2.home.type == d
+        runs[d] = e2.replay_device(batches[2:], wcfg)[:2]
+    (cs, cw), (ps, pw) = runs["cuda"], runs["cpu"]
+    for a, b in zip(cs.replay, ps.replay):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(cw[:3], pw[:3]):
+        np.testing.assert_array_equal(a, b)

@@ -18,7 +18,7 @@ process, bitwise.
   warning included.
 * ``ingest(watermark=)`` equals the reference's ``ingest_impl(watermark=)``.
 * The sharded refusals (``_check_supported``, ``check_capabilities``)
-  equal the reference's; only sharded lane serving is "not yet ported".
+  equal the reference's; what the reference runs, the port runs.
 """
 
 import jax
@@ -387,8 +387,6 @@ def _outcome(fn):
         fn()
     except ValueError as e:
         return "refused", str(e)
-    except NotImplementedError as e:
-        return "not yet ported", str(e)
     return "runs", None
 
 
@@ -404,8 +402,4 @@ def test_check_supported_matches_reference(sampler, start_mode):
         got = _outcome(lambda: tss._check_supported(
             tcfg.WalkConfig(start_mode=start_mode),
             tcfg.SamplerConfig(**sampler), lanes=lanes))
-        if want[0] == "runs" and lanes:
-            # sharded lane serving is the next slice
-            assert got[0] == "not yet ported" and "not yet" in got[1]
-        else:
-            assert got == want
+        assert got == want

@@ -34,7 +34,8 @@ from repro_torch.core.window import init_window
 from repro_torch.kernels import fused_step as kf
 from repro_torch.kernels import runtime
 from repro_torch.kernels.weight_prefix import weight_prefix
-from repro_torch.serve import WalkQuery, WalkService, pack_queries
+from repro_torch.serve import (ShardedSnapshotManager, WalkQuery,
+                               WalkService, pack_queries)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -96,6 +97,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: interop.store_from_ref(dict(
             src=[0], dst=[0], ts=[0], num_edges=1)),
         lambda: WalkService(EngineConfig()),
+        # sharded serving: its shards default to the visible cards
+        lambda: WalkService(EngineConfig(), num_shards=2),
+        lambda: ShardedSnapshotManager(EngineConfig(), num_shards=1),
         # the lane batch generate_walk_lanes takes, and its buffers
         lambda: pack_queries([WalkQuery(start_nodes=(1,))], 8, 16),
         lambda: alloc_walk_buffers(WalkConfig()),

@@ -12,8 +12,8 @@
 * ``generate_walks(..., buffers=)`` / ``generate_walks_donated`` equal a
   call without buffers and write the buffers they were given.
 * The capability matrix: every combination the reference refuses is
-  refused with its message; what it runs the port runs, except sharded
-  lane serving, which raises ``NotImplementedError``.
+  refused with its message; what it runs the port runs, sharded lane
+  serving included.
 * ``StreamingEngine``'s host loop (``replay``, ``sample_walks``,
   ``sample_walks_donated``): the reference engine's walks, window counts
   and registry counters.
@@ -283,15 +283,13 @@ def _outcome(check, scfg, path, lanes, sharded, have_tables):
         check(scfg, path, lanes, sharded=sharded, have_tables=have_tables)
     except ValueError as e:
         return "refused", str(e)
-    except NotImplementedError as e:
-        return "not yet ported", str(e)
     return "runs", None
 
 
 def test_capability_matrix_matches_reference():
     """Every combination, the default ``have_tables`` included: the port
-    runs or refuses (same message) as the reference does; only sharded
-    lane-serving combinations the reference runs are "not yet ported"."""
+    runs or refuses (same message) as the reference does, sharded lane
+    serving included."""
     counts = {}
     for mode, bias, path, lanes, sharded, have_tables, n2v in _sweep():
         j_lanes = None if lanes is None else jwe.LaneFeatures(*lanes)
@@ -305,16 +303,13 @@ def test_capability_matrix_matches_reference():
             tcfg.SamplerConfig(mode=mode, bias=bias, node2vec_p=n2v),
             path, t_lanes, sharded, have_tables)
         combo = (mode, bias, path, lanes, sharded, have_tables, n2v)
-        if want == "refused":
-            assert (got, got_msg) == (want, want_msg), combo
-        else:
-            serving = sharded and lanes is not None
-            assert got == ("not yet ported" if serving else "runs"), combo
-            if serving:
-                assert "not yet ported" in got_msg
+        assert (got, got_msg) == (want, want_msg), combo
         counts[got] = counts.get(got, 0) + 1
-    assert sum(counts.values()) == 2 * 4 * 4 * 5 * 2 * 2 * 2
-    assert counts["runs"] > 0 and counts["not yet ported"] > 0
+        if got == "runs" and sharded and lanes is not None:
+            counts["sharded serving runs"] = \
+                counts.get("sharded serving runs", 0) + 1
+    assert counts["runs"] + counts["refused"] == 2 * 4 * 4 * 5 * 2 * 2 * 2
+    assert counts["sharded serving runs"] > 0
     # the default have_tables is the reference's (False): a table request
     # without tables is refused with the reference's message
     for scfg, lanes in ((dict(bias="table"), None), (dict(), (True, False))):

@@ -15,8 +15,8 @@
   tickets on the grouped and fullwalk paths, with uniform and linear
   table weights, coalesced == solo.
 * Refusals: the reference's ``ValueError`` where it refuses; what it runs
-  and the port does not yet (sharded serving) raises
-  ``NotImplementedError``.
+  the port runs, sharded serving included (its tickets are held in
+  ``tests/test_torch_serve_sharded.py``).
 """
 import dataclasses
 import time
@@ -456,16 +456,14 @@ def test_service_refusals():
                                                     max_length=4),
                             tcfg.SamplerConfig(mode="index"),
                             tcfg.SchedulerConfig(path="tiled"))
-    # what the reference runs and the port does not yet: sharded serving
-    not_yet = [
-        lambda: tserve.WalkService(cfg, tcfg.ServeConfig(num_shards=2),
-                                   **dev),
-        lambda: tserve.WalkService(cfg, num_shards=2, **dev),
-        lambda: tserve.WalkService(cfg, mesh=object(), **dev),
-    ]
-    for call in not_yet:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    # what the reference runs the port runs: sharded serving, switched
+    # on by the config, by num_shards or by a mesh
+    from repro_torch.distributed.collectives import ShardGroup
+    for svc_sh in (
+            tserve.WalkService(cfg, tcfg.ServeConfig(num_shards=2), **dev),
+            tserve.WalkService(cfg, num_shards=2, **dev),
+            tserve.WalkService(cfg, mesh=ShardGroup(["cpu"] * 2))):
+        assert svc_sh.sharded and svc_sh.num_shards == 2
     # alias tables and node2vec run: a table query is refused only where
     # the window has no tables, with the reference's message
     j_svc = jserve.WalkService(_engine_cfg(jcfg), registry=JMetricsRegistry())
