@@ -27,8 +27,12 @@ through ``WalkService(num_shards=4)`` on the main path's window while its
 next batch is ingested (every ticket equal to the single-device
 service's), holds small sharded services to the CPU and to single-device
 solo runs, checkpoints a sharded window mid-stream and restores it at
-another shard count (``StreamSupervisor``, ``restore_engine``), and
-prints one JSON line per phase. The last three lines are the kernels
+another shard count (``StreamSupervisor``, ``restore_engine``), trains
+2^22 × 64 skipgram embeddings on the main path's walks of the train split
+and scores link prediction (``train_on_walks``, ``link_prediction_auc``),
+holds small training runs and AdamW (int8 too) on the card to the CPU,
+resumes a ``TrainSupervisor`` run from its checkpoint, and prints one
+JSON line per phase. The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero. With no CUDA device, or
 without the package next to it, it exits 2 and prints no result.
@@ -262,19 +266,31 @@ def busy_us(spans) -> float:
 
 
 def profile_call(fn) -> dict:
-    """Device kernels and device-busy ms of one call of ``fn``, after a
-    warm-up call, from a torch.profiler trace."""
+    """Device kernels, busy ms and idle share of one call of ``fn``, after
+    a warm-up call, from a torch.profiler trace, with the largest kernels
+    by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dict(kernels=len(spans), device_ms=busy_us(spans) / 1e3)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + (e.time_range.end - e.time_range.start) / 1e3
+    busy = busy_us(spans) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(kernels=len(spans), device_ms=busy, traced_wall_ms=wall_ms,
+                device_idle_share=1 - busy / wall_ms if spans else None,
+                top_kernels_ms={k[:80]: v for k, v in top})
 
 
 def two_stage_hop(index, s_node, s_time, u, scfg, sched):
@@ -2393,6 +2409,328 @@ def window_checkpoint(dev) -> dict:
                 seconds=time.perf_counter() - t_start)
 
 
+# examples/train_embeddings.py's settings: skipgram on the walks of every
+# batch of the chronological train split, link prediction on the edges
+# past TRAIN_TEST
+TRAIN = dict(window=2, epochs=1, batch_pairs=8192, n_neg=5, lr=0.025)
+TRAIN_DIM = 64
+TRAIN_SPLIT = 0.7
+TRAIN_TEST = 0.85
+# the split's last batches trained; the batches before them are ingested
+# and walked. Cut from all 17 of the full run to its 5 after the window
+# fills: a batch trains in ~3 s on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W), and the whole run must fit 1,200 s on a slower host
+TRAIN_BATCHES = 5
+
+
+def train_embeddings(args, cfg, batches, g, dev) -> dict:
+    """The training consumer at full size, driven as
+    examples/train_embeddings.py drives it: for each batch of the
+    chronological train split, ``ingest_batch``, ``sample_walks`` (2^20
+    walks × 80 from nodes, fused path) and ``train_on_walks`` on 2^22 × 64
+    tables; then ``link_prediction_auc`` on the last 15% of the edges.
+    Per batch: pairs, steps, seconds (CUDA events), pairs/s, host syncs
+    of the call and the loss."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.data.walk_dataset import skipgram_pairs
+    from repro_torch.kernels import runtime
+    from repro_torch.train.embeddings import (init_skipgram,
+                                              link_prediction_auc,
+                                              skipgram_step, train_on_walks)
+    K = len(batches)
+    split = [bi for bi in range(K) if bi / K <= TRAIN_SPLIT]
+    first = max(0, len(split) - TRAIN_BATCHES)
+    wcfg = WalkConfig(num_walks=args.walks, max_length=args.length,
+                      start_mode="nodes")
+    engine = StreamingEngine(cfg, args.edges_per_batch, probes=False)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_skipgram(args.nodes, TRAIN_DIM, prng.PRNGKey(1), device=dev)
+    key = prng.PRNGKey(2)
+    runtime.reset_launches()
+    rows, walks, sampled = [], None, 0
+    t_phase = time.perf_counter()
+    for bi in split:
+        engine.ingest_batch(*batches[bi])
+        walks = engine.sample_walks(wcfg)
+        sampled += 1
+        key, sub = prng.split(key)
+        if bi < first:
+            continue
+        pairs = skipgram_pairs(walks.nodes, walks.lengths,
+                               TRAIN["window"])[0].numel()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        (state, loss), syncs, sites = count_syncs(
+            lambda: train_on_walks(state, walks.nodes, walks.lengths, sub,
+                                   **TRAIN))
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+        rows.append(dict(batch=bi, pairs=pairs,
+                         steps=math.ceil(pairs / TRAIN["batch_pairs"]),
+                         seconds=secs, pairs_per_s=pairs / secs,
+                         host_syncs=syncs, host_sync_sites=sites,
+                         loss=loss))
+    launches = dict(runtime.LAUNCHES)
+    loop_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = hop_validity(engine.state.index, walks, dev)
+    n_test = int(TRAIN_TEST * len(g.src))
+    t0 = time.perf_counter()
+    auc = link_prediction_auc(state, g.src[n_test:], g.dst[n_test:],
+                              args.nodes)
+    auc_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in rows]
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(auc > 0.5, f"link prediction AUC {auc} <= 0.5")
+    require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
+            f"train_embeddings: hop validity {rep.hop_valid_frac}")
+    require(launches["fused_hop"] == args.length * sampled
+            and launches["weight_prefix"] == 2 * sampled,
+            f"train_embeddings: launches {launches} for {sampled} batches")
+    worst_syncs = max(r["host_syncs"] for r in rows)
+    require(worst_syncs <= 4,
+            f"train_on_walks made {worst_syncs} host syncs in one call")
+
+    # one step alone, on the last batch's first mini-batch of pairs
+    c, x = skipgram_pairs(walks.nodes, walks.lengths, TRAIN["window"])
+    c, x = c[:TRAIN["batch_pairs"]], x[:TRAIN["batch_pairs"]]
+    step_key = prng.PRNGKey(9)
+    step = profile_call(lambda: skipgram_step(state, c, x, step_key,
+                                       TRAIN["n_neg"], TRAIN["lr"]))
+    draw = profile_call(lambda: prng.randint(step_key, (c.numel(), TRAIN["n_neg"]),
+                                      0, args.nodes, dev))
+    total_pairs = sum(r["pairs"] for r in rows)
+    total_s = sum(r["seconds"] for r in rows)
+    out = dict(batches_walked=sampled, batches_trained=len(rows),
+               trained_from=first, dim=TRAIN_DIM, **TRAIN,
+               tables_gib=2 * args.nodes * TRAIN_DIM * 4 / 2**30,
+               per_batch=rows, pairs=total_pairs,
+               steps=sum(r["steps"] for r in rows),
+               train_seconds=total_s, pairs_per_s=total_pairs / total_s,
+               host_syncs_per_call=sorted({r["host_syncs"] for r in rows}),
+               last_loss=losses[-1], auc=auc, auc_seconds=auc_s,
+               test_edges=len(g.src) - n_test, loop_seconds=loop_s,
+               hop_valid_frac=rep.hop_valid_frac, num_hops_checked=rep.num_hops,
+               launches=launches, peak_mem_gib=peak,
+               skipgram_step=step, randint_of_step=draw)
+    del engine, state, walks, c, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cuda_equals_cpu(dev) -> dict:
+    """A small stream (512 nodes, 2^15 edges, 4 batches), trained at dim
+    16 on the card and on the CPU: walks, skipgram pairs and negatives
+    bitwise; losses and tables within the training tolerance of
+    tests/test_torch_cuda.py; the AUC within 1e-3. A second card run
+    gives the same bits (the per-row sums run in a fixed order)."""
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs.base import (EngineConfig, SamplerConfig,
+                                          SchedulerConfig, WalkConfig,
+                                          WindowConfig)
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.data.synthetic import (chronological_batches,
+                                            powerlaw_temporal_graph)
+    from repro_torch.data.walk_dataset import skipgram_pairs
+    from repro_torch.train.embeddings import (init_skipgram,
+                                              link_prediction_auc,
+                                              train_on_walks)
+    rtol, atol = 1e-5, 1e-7
+    n, bp = 512, 2048
+    g = powerlaw_temporal_graph(n, 1 << 15, skew=1.2, t_max=100_000, seed=2)
+    stream = list(chronological_batches(g, 4))
+    cfg = EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
+                            node_capacity=n),
+        sampler=SamplerConfig(bias="exponential", mode="index"),
+        scheduler=SchedulerConfig(path="fused", tile_walks=64,
+                                  tile_edges=256))
+    wcfg = WalkConfig(num_walks=1024, max_length=16)
+    t0 = time.perf_counter()
+    runs = {}
+    for run, d in (("card", dev), ("cpu", "cpu"), ("card_again", dev)):
+        eng = StreamingEngine(cfg, 1 << 13, device=d)
+        state = init_skipgram(n, 16, prng.PRNGKey(1), device="cpu")
+        state = type(state)(*(t.to(d) for t in state))
+        key = prng.PRNGKey(2)
+        walks, pairs, negs, losses = [], [], [], []
+        for b in stream:
+            eng.ingest_batch(*b)
+            w = eng.sample_walks(wcfg)
+            key, sub = prng.split(key)
+            p = skipgram_pairs(w.nodes, w.lengths, TRAIN["window"])
+            steps = math.ceil(p[0].numel() / bp)
+            negs.append(prng.randint_keys(prng.split_chain(sub, steps)[1],
+                                          (bp, TRAIN["n_neg"]), 0, n,
+                                          d).cpu())
+            walks.append(w.nodes.cpu())
+            pairs.append([t.cpu() for t in p])
+            state, loss = train_on_walks(state, w.nodes, w.lengths, sub,
+                                         window=TRAIN["window"],
+                                         batch_pairs=bp,
+                                         n_neg=TRAIN["n_neg"],
+                                         lr=TRAIN["lr"])
+            losses.append(loss)
+        n_test = int(TRAIN_TEST * len(g.src))
+        auc = link_prediction_auc(state, g.src[n_test:], g.dst[n_test:], n)
+        runs[run] = (walks, pairs, negs, losses,
+                     [t.cpu() for t in state], auc)
+    card, cpu, again = runs["card"], runs["cpu"], runs["card_again"]
+    same = [all(torch.equal(a, b) for a, b in zip(card[0], cpu[0])),
+            all(torch.equal(x, y) for a, b in zip(card[1], cpu[1])
+                for x, y in zip(a, b)),
+            all(torch.equal(a, b) for a, b in zip(card[2], cpu[2]))]
+    require(all(same), f"train_cuda_equals_cpu: walks, pairs, negatives "
+                       f"bitwise {same}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[3], cpu[3]))
+    table_err = {}
+    for name, a, b in zip(("emb_in", "emb_out"), card[4], cpu[4]):
+        diff = (a - b).abs()
+        require(bool((diff <= atol + rtol * b.abs()).all()),
+                f"train_cuda_equals_cpu: {name} off by {diff.max()}")
+        table_err[name] = float(diff.max())
+    require(loss_err <= rtol, f"train_cuda_equals_cpu: loss {loss_err}")
+    require(abs(card[5] - cpu[5]) <= 1e-3,
+            f"train_cuda_equals_cpu: AUC {card[5]} vs {cpu[5]}")
+    repeat = all(torch.equal(a, b) for a, b in zip(card[4], again[4])) \
+        and card[3] == again[3]
+    require(repeat, "train_cuda_equals_cpu: two card runs differ")
+    return dict(walks_pairs_negatives_bitwise=True,
+                pairs=sum(p[0].numel() for p in card[1]),
+                loss_max_rel_err=loss_err, table_max_abs_err=table_err,
+                tolerance=f"|diff| <= {atol} + {rtol}*|cpu|",
+                auc_card=card[5], auc_cpu=cpu[5],
+                card_runs_bitwise_equal=repeat,
+                seconds=time.perf_counter() - t0)
+
+
+OPT_LEAVES = {"emb": (1 << 14, 1 << 9), "layers": [(1 << 12, 1 << 10),
+                                                   (1 << 11, 1 << 11)]}
+OPT_STEPS = 20
+
+
+def opt_tree(make):
+    """A tree shaped as ``OPT_LEAVES`` (2^24 float32) with ``make(i, shape)``
+    as leaf i."""
+    return {"emb": make(0, OPT_LEAVES["emb"]),
+            "layers": [make(1 + i, s)
+                       for i, s in enumerate(OPT_LEAVES["layers"])]}
+
+
+def optimizer_cuda_equals_cpu(dev) -> dict:
+    """``apply_updates`` on a 2^24-parameter tree for 20 steps, without and
+    with int8 compression, on the card and on the CPU from the same bits:
+    the int8 residuals and codes equal, params and moments within 1e-6 of
+    each leaf's largest magnitude. Then ``TrainSupervisor(save_every=5)``
+    over 12 steps on the card, a "crash", a restore onto the card and the
+    tail replayed: bitwise the uninterrupted run."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.distributed.fault_tolerance import TrainSupervisor
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.train.checkpoint import _flatten_with_paths
+    from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
+                                             init_opt_state, quantize_int8,
+                                             tree_map)
+    rng = np.random.default_rng(11)
+    base = [opt_tree(lambda i, s: torch.from_numpy(
+        rng.standard_normal(s, dtype=np.float32))) for _ in range(3)]
+    t0 = time.perf_counter()
+
+    def grads_at(t, d):
+        # the same bits on every device: two products and a sum, each one
+        # rounding
+        a, b = math.cos(0.3 * t) * 0.3, math.sin(0.3 * t) * 0.3
+        return tree_map(lambda x, y: x.to(d) * a + y.to(d) * b,
+                        base[1], base[2])
+
+    def run(cfg, d, steps):
+        p = tree_map(lambda x: x.to(d), base[0])
+        st = init_opt_state(p, cfg)
+        for t in range(steps):
+            p, st, _ = apply_updates(p, grads_at(t, d), st, cfg)
+        return p, st
+
+    out = {}
+    for comp in ("none", "int8"):
+        cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100,
+                          compression=comp)
+        (cp, cs), (hp, hs) = run(cfg, dev, OPT_STEPS), run(cfg, "cpu",
+                                                           OPT_STEPS)
+        worst = 0.0
+        for (k, a), (_, b) in zip(_flatten_with_paths((cp, cs.mu, cs.nu)),
+                                  _flatten_with_paths((hp, hs.mu, hs.nu))):
+            gap = float((a.cpu() - b).abs().max() / b.abs().max())
+            require(gap <= 1e-6, f"optimizer ({comp}) {k}: {gap}")
+            worst = max(worst, gap)
+        reading = dict(max_err_of_leaf_max=worst)
+        if comp == "int8":
+            errs_equal = all(
+                torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(
+                    _flatten_with_paths(cs.error),
+                    _flatten_with_paths(hs.error)))
+            g_last = grads_at(OPT_STEPS, "cpu")
+            codes_equal = all(
+                torch.equal(quantize_int8(g.to(dev) + e)[0].cpu(),
+                            quantize_int8(g + f)[0])
+                for (_, g), (_, e), (_, f) in zip(
+                    _flatten_with_paths(g_last),
+                    _flatten_with_paths(cs.error),
+                    _flatten_with_paths(hs.error)))
+            require(errs_equal and codes_equal,
+                    f"optimizer int8: residuals equal {errs_equal}, codes "
+                    f"equal {codes_equal}")
+            reading.update(residuals_equal=True, codes_equal=True)
+        out[comp] = reading
+        del cp, cs, hp, hs
+
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100,
+                      compression="int8")
+
+    def step_fn(p, st, t):
+        return apply_updates(p, grads_at(t, dev), st, cfg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(tmp, save_every=5, registry=MetricsRegistry())
+        p0 = tree_map(lambda x: x.to(dev), base[0])
+        o0 = init_opt_state(p0, cfg)
+        p1, o1, step = sup.run(step_fn, p0, o0, range(12), max_steps=12)
+        resume = sup.resume_step()
+        t1 = time.perf_counter()
+        p2, o2 = sup.restore(p0, o0)
+        restore_s = time.perf_counter() - t1
+        p2, o2, step2 = sup.run(step_fn, p2, o2, range(resume, 12),
+                                start_step=resume, max_steps=12)
+        on_card = all(x.device.type == "cuda"
+                      for _, x in _flatten_with_paths((p2, o2)))
+        equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            _flatten_with_paths((p1, o1)), _flatten_with_paths((p2, o2))))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
+    require(step == step2 == 12 and resume == 10 and on_card and equal,
+            f"TrainSupervisor: steps {step}/{step2}, resume {resume}, "
+            f"on card {on_card}, bitwise {equal}")
+    return dict(parameters=sum(x.numel() for _, x in
+                               _flatten_with_paths(base[0])),
+                steps=OPT_STEPS, **out,
+                supervisor=dict(save_every=5, steps=12, resumed_from=resume,
+                                bitwise_equal=True, restored_on_card=True,
+                                checkpoint_bytes=ckpt_bytes,
+                                restore_seconds=restore_s),
+                seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -2830,6 +3168,13 @@ def main(argv=None) -> int:
     emit("serve_sharded_small", **serve_sharded_small(dev))
     ckpt = window_checkpoint(dev)
     emit("window_checkpoint", **ckpt)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the training consumer ---------------------------------
+    train = train_embeddings(args, cfg, batches, g, dev)
+    emit("train_embeddings", **train, cuts=cuts)
+    emit("train_cuda_equals_cpu", **train_cuda_equals_cpu(dev))
+    emit("optimizer_cuda_equals_cpu", **optimizer_cuda_equals_cpu(dev))
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -2846,7 +3191,9 @@ def main(argv=None) -> int:
              grouped_plain_ms=plain_grouped, bound_ms=bound_hop,
              bound_by="bytes", library_ms=None,
              sharded_walks_launches=sharded_w["paths"]["fused"]["launches"][
-                 "fused_hop"], **serve["fused_hop"])
+                 "fused_hop"],
+             train_embeddings_launches=train["launches"]["fused_hop"],
+             **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
     ] + [
@@ -2861,6 +3208,7 @@ def main(argv=None) -> int:
              reshard_launches=sharded["rebalance"]["launches"][
                  "weight_prefix"],
              serve_sharded_launches=serve_sh["launches"]["weight_prefix"],
+             train_embeddings_launches=train["launches"]["weight_prefix"],
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]
                  for r in ckpt["runs"]],

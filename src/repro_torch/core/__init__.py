@@ -1,13 +1,19 @@
 """The streaming walk sampler: edge store, dual index, samplers, alias
 tables, dispatch plane and regroup, the walk engine (fullwalk, grouped,
 tiled and fused paths; per-lane batches; node2vec; reusable walk
-buffers), sliding window and streaming replay."""
+buffers), sliding window and streaming replay; and the paper's host
+baselines (``baselines``: TEA-style and static walkers)."""
 from repro_torch.core.alias import (
     AliasTables,
     TableSpec,
     build_tables,
     spec_from_sampler,
     update_tables,
+)
+from repro_torch.core.baselines import (
+    StaticWalker,
+    TeaStyleSampler,
+    temporal_validity,
 )
 from repro_torch.core.edge_store import (
     EdgeBatch,
@@ -47,7 +53,8 @@ from repro_torch.core.window import (
 
 __all__ = [
     "AliasTables", "TableSpec", "build_tables", "spec_from_sampler",
-    "update_tables", "EdgeBatch", "EdgeStore", "empty_store", "make_batch",
+    "update_tables", "StaticWalker", "TeaStyleSampler",
+    "temporal_validity", "EdgeBatch", "EdgeStore", "empty_store", "make_batch",
     "stack_batches", "store_from_arrays", "StreamingEngine", "StreamStats",
     "replay_scan", "replay_scan_probed", "TemporalIndex", "build_index",
     "build_index_donated", "LaneParams", "WalkBuffers", "WalkResult",

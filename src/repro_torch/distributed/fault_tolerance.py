@@ -1,7 +1,9 @@
-"""Fault tolerance for long-running streaming (DESIGN.md §6, §15),
-PyTorch port of repro/distributed/fault_tolerance.py without its training
-supervisor, which comes with the training loop.
+"""Fault tolerance for long-running training and streaming (DESIGN.md §6,
+§15), PyTorch port of repro/distributed/fault_tolerance.py.
 
+The training state is (params, optimiser state, data cursor, key), all
+checkpointable: ``TrainSupervisor`` drives a step function with
+checkpoint-every-N and a straggler watchdog, and restores after a crash.
 The walk engine's state is (window edges + walk key). ``WindowCheckpointer``
 persists it directly — the sharded window, its placement manifest and
 the walk key — so a restart resumes the replay mid-stream instead of
@@ -26,9 +28,11 @@ from repro_torch.distributed.streaming_shard import (
     DistributedStreamingEngine,
     ShardedWindowState,
 )
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.obs.export import dump_health
 from repro_torch.obs.registry import MetricsRegistry, get_registry
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.optimizer import tree_map
 
 
 @dataclass
@@ -63,6 +67,68 @@ class StragglerPolicy:
             return "straggler"
         self._flags = 0
         return "ok"
+
+
+@dataclass
+class TrainSupervisor:
+    """Checkpoint-every-N supervisor with crash-resume semantics: params
+    under ``<ckpt_dir>/params``, optimiser state under ``<ckpt_dir>/opt``,
+    in the reference's on-disk format."""
+
+    ckpt_dir: str
+    save_every: int = 100
+    straggler: StragglerPolicy = field(default_factory=StragglerPolicy)
+    registry: Optional[MetricsRegistry] = None
+
+    @property
+    def _reg(self) -> MetricsRegistry:
+        return self.registry if self.registry is not None else get_registry()
+
+    def resume_step(self) -> int:
+        s = ckpt.latest_step(os.path.join(self.ckpt_dir, "params"))
+        return int(s) if s is not None else 0
+
+    def restore(self, params_like, opt_like, device=None):
+        """(params, opt_state) of the latest checkpoint, shaped like the
+        two trees given, every leaf on CUDA unless ``device`` names
+        another."""
+        device = resolve_device(device)
+
+        def load(name, like):
+            tree = ckpt.restore(os.path.join(self.ckpt_dir, name), like)
+            return tree_map(lambda x: x.to(device), tree)
+        return load("params", params_like), load("opt", opt_like)
+
+    def run(self, step_fn: Callable, params, opt_state, batches,
+            start_step: int = 0, max_steps: int = 10**9,
+            on_event: Optional[Callable] = None):
+        """Drives training; checkpoints; reports straggler events.
+
+        ``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
+        """
+        step = start_step
+        for batch in batches:
+            if step >= max_steps:
+                break
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            verdict = self.straggler.observe(time.perf_counter() - t0)
+            if verdict != "ok":
+                self._reg.inc("straggler_events_total", 1,
+                              labels={"verdict": verdict},
+                              help="straggler watchdog flags, by verdict")
+                if on_event:
+                    on_event(step, verdict)
+            step += 1
+            if step % self.save_every == 0:
+                self.save(params, opt_state, step)
+        return params, opt_state, step
+
+    def save(self, params, opt_state, step: int):
+        ckpt.save(os.path.join(self.ckpt_dir, "params"), params, step)
+        ckpt.save(os.path.join(self.ckpt_dir, "opt"), opt_state, step)
+        self._reg.inc("checkpoints_total", 1, labels={"kind": "train"},
+                      help="checkpoints written, by kind")
 
 
 @dataclass

@@ -1,13 +1,14 @@
 """State carried across from the reference into the port's types.
 
 The functions take the reference's ``EdgeStore``, ``TemporalIndex``,
-``WindowState`` and ``LaneParams`` as NamedTuples or dicts whose fields
-are numpy arrays (or anything ``numpy.asarray`` accepts), and a key as two
-uint32 words. Tests use them to feed the reference's own index — its
-``pexp``/``plin`` among it — into the port, so weight-mode walks can be
-compared bit for bit, to start the port from the reference's window,
-sharded window and alias tables, and to run one packed lane batch in
-both packages.
+``WindowState``, ``LaneParams``, ``SkipgramState`` and ``OptState`` as
+NamedTuples or dicts whose fields are numpy arrays (or anything
+``numpy.asarray`` accepts), and a key as two uint32 words. Tests use them
+to feed the reference's own index — its ``pexp``/``plin`` among it — into
+the port, so weight-mode walks can be compared bit for bit, to start the
+port from the reference's window, sharded window and alias tables, to
+run one packed lane batch in both packages, and to step embeddings and
+optimiser state from the same bits.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from repro_torch.core.temporal_index import TemporalIndex
 from repro_torch.core.walk_engine import LaneParams
 from repro_torch.core.window import WindowState
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.train.embeddings import SkipgramState
+from repro_torch.train.optimizer import OptState
 
 _INT_FIELDS = ("ns_order", "ns_src", "ns_dst", "ns_ts", "node_starts",
                "node_group_counts", "node_tref", "node_tbase", "adj_order",
@@ -121,3 +124,35 @@ def lanes_from_ref(lanes, device=None) -> LaneParams:
         else:
             fields[f] = _tensor(x, np.int32, device)
     return LaneParams(**fields)
+
+
+def tree_from_ref(tree, device=None):
+    """A tree of tensors (dtypes kept) from the reference's dicts, lists,
+    tuples and NamedTuples of arrays; None stays None."""
+    device = resolve_device(device)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_from_ref(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_from_ref(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_ref(v, device) for v in tree)
+    return torch.as_tensor(np.array(tree)).to(device)
+
+
+def skipgram_state_from_ref(state, device=None) -> SkipgramState:
+    """The port's ``SkipgramState`` from the reference's (same fields)."""
+    device = resolve_device(device)
+    return SkipgramState(
+        emb_in=_tensor(_get(state, "emb_in"), np.float32, device),
+        emb_out=_tensor(_get(state, "emb_out"), np.float32, device))
+
+
+def opt_state_from_ref(state, device=None) -> OptState:
+    """The port's ``OptState`` from the reference's: the int32 step and
+    the ``mu``/``nu``/``error`` trees (dicts, lists, tuples)."""
+    device = resolve_device(device)
+    return OptState(step=_tensor(_get(state, "step"), np.int32, device),
+                    **{f: tree_from_ref(_get(state, f), device)
+                       for f in ("mu", "nu", "error")})

@@ -9,7 +9,15 @@ for byte if the port reproduces those bits exactly:
 * ``fold_in(key, d)`` — ``threefry(key, (0, d))``;
 * ``uniform(key, shape)`` — for flat index i, bits =
   ``y0 ^ y1`` of ``threefry(key, (i >> 32, i & 0xFFFFFFFF))``, then the
-  float32 in [0, 1) with mantissa ``bits >> 9``.
+  float32 in [0, 1) with mantissa ``bits >> 9``;
+* ``randint(key, shape, lo, hi)`` — ``k1, k2 = split(key)``, a high and a
+  low word of bits from each, folded into ``[0, span)`` by
+  ``((hi mod span)·m + lo mod span) mod span`` in uint32, with jax's
+  ``m = (2^16 mod span)^2 mod span``, whose square wraps in uint32 (so
+  ``m = 0`` for spans above 2^16);
+* ``normal(key, shape)`` — a uniform on ``[nextafter(-1, 0), 1)``, then
+  ``sqrt(2)·erfinv``. ``torch.erfinv`` is not XLA's ``erf_inv`` (both
+  approximate), so normals agree with jax's to a stated tolerance only.
 
 A key is an int64 tensor of shape ``(2,)`` holding the two uint32 words
 (on the CPU: key arithmetic is a handful of integer ops, done on the
@@ -28,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.runtime import resolve_device
@@ -117,6 +126,21 @@ def uniform_lanes(keys: torch.Tensor) -> torch.Tensor:
     return _to_unit_float(y0 ^ y1)
 
 
+def split_chain(key: KeyLike, num: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``num`` successive ``key, sub = split(key)``: returns the last key
+    and the ``num`` subkeys, int64 ``[num, 2]``, computed on Python ints
+    (a host loop that calls ``split`` per step pays ~100 tiny tensor ops
+    each time)."""
+    k1, k2 = key_words(key)
+    subs = []
+    for _ in range(num):
+        a = _threefry2x32(k1, k2, 0, 0)
+        subs.append(_threefry2x32(k1, k2, 0, 1))
+        k1, k2 = a
+    return _key(k1, k2), torch.tensor(subs, dtype=torch.int64).reshape(
+        num, 2)
+
+
 def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)
     return f - 1.0
@@ -127,7 +151,69 @@ def uniform(key: KeyLike, shape: Sequence[int],
     """float32 U[0, 1) of ``shape`` (``jax.random.uniform``), on CUDA unless
     ``device`` names another."""
     k1, k2 = key_words(key)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
-                       device=resolve_device(device))
+    bits = _bits(k1, k2, math.prod(shape), resolve_device(device))
+    return _to_unit_float(bits.reshape(tuple(shape)))
+
+
+def _bits(k1, k2, n: int, device) -> torch.Tensor:
+    """jax's 32-bit ``random_bits`` of ``n`` values: int64 ``[..., n]``
+    holding uint32, for keys given as ints or int64 ``[..., 1]``."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK)
-    return _to_unit_float((y0 ^ y1).reshape(tuple(shape)))
+    return y0 ^ y1
+
+
+def randint_keys(keys: torch.Tensor, shape: Sequence[int], minval: int,
+                 maxval: int, device: torch.device | str | None = None
+                 ) -> torch.Tensor:
+    """int32 ``[S, *shape]``: row s is ``jax.random.randint(keys[s], shape,
+    minval, maxval)`` for the S keys of int64 ``[S, 2]``, drawn in one
+    batch on CUDA unless ``device`` names another. ``minval`` and
+    ``maxval`` are Python ints in the int32 range, as jax takes them."""
+    device = resolve_device(device)
+    lo_v, hi_v = int(minval), int(maxval)
+    if not -(1 << 31) <= min(lo_v, hi_v) <= max(lo_v, hi_v) < (1 << 31):
+        raise OverflowError(f"randint bounds {lo_v}, {hi_v} leave int32")
+    span = hi_v - lo_v if hi_v > lo_v else 1
+    # jax's multiplier, (2^16 mod span)^2 mod span with the square taken
+    # in uint32: it wraps to 0 for every span above 2^16
+    mult = (((1 << 16) % span) ** 2 & _MASK) % span
+    # split each key on the host: k1 = threefry(key, (0, 0)), k2 = (0, 1)
+    kk = torch.as_tensor(keys, dtype=torch.int64).cpu()
+    a = _threefry2x32(kk[:, 0], kk[:, 1], 0, 0)
+    b = _threefry2x32(kk[:, 0], kk[:, 1], 0, 1)
+    words = torch.stack(a + b, dim=1).to(device, non_blocking=True)
+    n = math.prod(shape)
+    hi = _bits(words[:, 0:1], words[:, 1:2], n, device)
+    lo = _bits(words[:, 2:3], words[:, 3:4], n, device)
+    # uint32 arithmetic: the product wraps before the sum, the sum before
+    # the last remainder
+    off = (((hi % span) * mult & _MASK) + lo % span) & _MASK
+    out = (off % span + lo_v + (1 << 31) & _MASK) - (1 << 31)  # int32 wrap
+    return out.to(torch.int32).reshape((kk.shape[0],) + tuple(shape))
+
+
+def randint(key: KeyLike, shape: Sequence[int], minval: int, maxval: int,
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """int32 in ``[minval, maxval)`` of ``shape``, bit for bit
+    ``jax.random.randint``, on CUDA unless ``device`` names another."""
+    keys = torch.tensor([key_words(key)], dtype=torch.int64)
+    return randint_keys(keys, shape, minval, maxval, device)[0]
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: KeyLike, shape: Sequence[int],
+           device: torch.device | str | None = None) -> torch.Tensor:
+    """float32 standard normals of ``shape`` (``jax.random.normal``), on
+    CUDA unless ``device`` names another: jax's uniform on
+    ``[nextafter(-1, 0), 1)`` bit for bit, then ``sqrt(2)·erfinv`` by
+    ``torch.erfinv``, which differs from XLA's ``erf_inv`` in its last
+    bits."""
+    u = uniform(key, shape, device)
+    # uniform(minval=lo, maxval=1): floats·(1 − lo) + lo, where 1 − lo
+    # rounds to 2.0 in float32, then max(lo, ·)
+    u = torch.clamp_min(u * 2.0 + _NORMAL_LO, _NORMAL_LO)
+    return torch.erfinv(u) * _SQRT2

@@ -21,9 +21,10 @@ shard's device; given another shard count or placement it re-buckets the
 window through ``reshard_host`` (the elastic restore), keeping the edge
 multiset up to the counted per-shard capacity clip.
 
-``save``/``restore`` are the generic leaf writer and reader; their use
-for model parameters and optimiser state comes with the training loop,
-which is not ported yet.
+``save``/``restore`` are the generic leaf writer and reader: the
+training supervisor (``distributed.fault_tolerance.TrainSupervisor``)
+writes params and ``OptState`` trees with them (a 0-d ``.step``,
+``.mu/<key>``, ``.nu/<key>``, and no ``.error`` leaf when it is None).
 """
 from __future__ import annotations
 

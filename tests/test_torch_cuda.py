@@ -564,3 +564,123 @@ def test_sharded_checkpoint_round_trip_from_card(card, tmp_path):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(cw[:3], pw[:3]):
         np.testing.assert_array_equal(a, b)
+
+
+# tables and losses: card vs CPU, as the CPU is held to the reference
+# (tests/test_torch_train.py)
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-7
+
+
+def _train_walks(device):
+    """Three walk batches of a small stream on ``device`` (fused path)."""
+    g = powerlaw_temporal_graph(512, 1 << 15, seed=2, t_max=100_000)
+    eng = StreamingEngine(EngineConfig(
+        window=WindowConfig(duration=50_000.0, edge_capacity=1 << 14,
+                            node_capacity=512),
+        scheduler=SchedulerConfig(path="fused", tile_walks=64,
+                                  tile_edges=256)), 1 << 13, device=device)
+    walks = []
+    for bs, bd, bt in list(chronological_batches(g, 4))[:3]:
+        eng.ingest_batch(bs, bd, bt)
+        walks.append(eng.sample_walks(WalkConfig(num_walks=1024,
+                                                 max_length=16)))
+    return g, walks
+
+
+def test_skipgram_step_card_equals_cpu(card):
+    """Negatives bitwise; loss and tables within the training tolerance;
+    unread rows unchanged; two card runs bitwise equal."""
+    from repro_torch import random as prng
+    from repro_torch.train import embeddings as emb
+    rng = np.random.default_rng(5)
+    c = torch.from_numpy(rng.integers(0, 512, 4096).astype(np.int32))
+    x = torch.from_numpy(rng.integers(0, 512, 4096).astype(np.int32))
+    init = emb.init_skipgram(1 << 14, 16, prng.PRNGKey(1), device="cpu")
+    init = emb.SkipgramState(init.emb_in, init.emb_in.flip(0) * 0.5)
+    out = {}
+    for run, dev in (("cpu", "cpu"), ("cuda", card), ("cuda2", card)):
+        state = emb.SkipgramState(*(t.clone().to(dev) for t in init))
+        key, losses = prng.PRNGKey(3), []
+        for _ in range(3):
+            key, sub = prng.split(key)
+            state, loss = emb.skipgram_step(state, c.to(dev), x.to(dev),
+                                            sub)
+            losses.append(float(loss))
+        negs = prng.randint(sub, (4096, 5), 0, 1 << 14, dev)
+        out[run] = (state, losses, negs.cpu())
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1],
+                               rtol=TRAIN_RTOL)
+    for a, b, c2, t0 in zip(out["cuda"][0], out["cpu"][0], out["cuda2"][0],
+                            init):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+        assert torch.equal(a, c2)
+        unread = (b == t0).all(1) & (a.cpu() == t0).all(1)
+        assert unread.any()
+
+
+def test_train_on_walks_card_equals_cpu(card):
+    """Walks, pairs and negatives bitwise; losses and tables within the
+    training tolerance; the AUC within 1e-3."""
+    from repro_torch import random as prng
+    from repro_torch.data.walk_dataset import skipgram_pairs
+    from repro_torch.train import embeddings as emb
+    res = {}
+    for dev in ("cuda", "cpu"):
+        g, walks = _train_walks(dev)
+        state = emb.init_skipgram(512, 16, prng.PRNGKey(1), device="cpu")
+        state = emb.SkipgramState(*(t.to(dev) for t in state))
+        key, losses, pairs = prng.PRNGKey(2), [], []
+        for w in walks:
+            key, sub = prng.split(key)
+            pairs.append([t.cpu() for t in skipgram_pairs(w.nodes,
+                                                          w.lengths)])
+            state, loss = emb.train_on_walks(state, w.nodes, w.lengths, sub,
+                                             batch_pairs=2048)
+            losses.append(loss)
+        n_test = int(0.85 * len(g.src))
+        auc = emb.link_prediction_auc(state, g.src[n_test:], g.dst[n_test:],
+                                      512)
+        res[dev] = (walks, pairs, losses, state, auc)
+    (cw, cp, cl, cs, ca), (pw, pp, pl, ps, pa) = res["cuda"], res["cpu"]
+    for a, b in zip(cw, pw):
+        assert torch.equal(a.nodes.cpu(), b.nodes)
+    for a, b in zip(cp, pp):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    np.testing.assert_allclose(cl, pl, rtol=TRAIN_RTOL)
+    for a, b in zip(cs, ps):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    assert abs(ca - pa) <= 1e-3
+
+
+def test_apply_updates_int8_card_equals_cpu(card):
+    """20 AdamW steps with int8 compression: the residuals (so the codes)
+    bitwise; params and moments within 1e-6 of each leaf's largest
+    magnitude."""
+    from repro_torch.train import optimizer as opt
+    rng = np.random.default_rng(7)
+    shapes = {"a": (256, 64), "b": (1000,)}
+    cfg = opt.AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=40,
+                          compression="int8")
+    p0 = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for k, s in shapes.items()}
+    grads = [{k: torch.from_numpy((0.3 * rng.normal(size=s))
+                                  .astype(np.float32))
+              for k, s in shapes.items()} for _ in range(20)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in p0.items()}
+        st = opt.init_opt_state(p, cfg)
+        for g in grads:
+            p, st, _ = opt.apply_updates(p, {k: v.to(dev)
+                                             for k, v in g.items()}, st, cfg)
+        out[dev] = (p, st)
+    (cp, cs), (pp, ps) = out["cuda"], out["cpu"]
+    for k in shapes:
+        assert torch.equal(cs.error[k].cpu(), ps.error[k]), k
+        for a, b in ((cp[k], pp[k]), (cs.mu[k], ps.mu[k]),
+                     (cs.nu[k], ps.nu[k])):
+            gap = (a.cpu() - b).abs().max()
+            assert gap <= 1e-6 * b.abs().max(), k
