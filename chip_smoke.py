@@ -31,7 +31,11 @@ another shard count (``StreamSupervisor``, ``restore_engine``), trains
 2^22 × 64 skipgram embeddings on the main path's walks of the train split
 and scores link prediction (``train_on_walks``, ``link_prediction_auc``),
 holds small training runs and AdamW (int8 too) on the card to the CPU,
-resumes a ``TrainSupervisor`` run from its checkpoint, and prints one
+resumes a ``TrainSupervisor`` run from its checkpoint, trains olmo-1b at
+full size on token streams of the main path's walks (``make_train_step``,
+bf16, remat per block), serves qwen2-0.5b at full size from its KV cache
+(prefill, cache fill, greedy decode with no host sync), holds both models
+at full width and 2 layers on the card to the CPU, and prints one
 JSON line per phase. The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero. With no CUDA device, or
@@ -2731,6 +2735,386 @@ def optimizer_cuda_equals_cpu(dev) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# The walk-native LM consumer (repro_torch.models, train/train_loop.py)
+# ---------------------------------------------------------------------------
+
+# examples/train_lm_on_walks.py at full size: olmo-1b, walks of the main
+# path's final window packed into batch × seq tokens, AdamW
+LM_TRAIN = dict(arch="olmo-1b", walks=1 << 14, batch=8, seq=2048, steps=10,
+                lr=3e-4, warmup_steps=2)
+# examples/serve_lm.py at full size: qwen2-0.5b from the KV cache
+LM_SERVE = dict(arch="qwen2-0.5b", prompts=64, prompt_len=512, max_seq=1024,
+                new_tokens=128)
+# dense bf16 peak of one H100 SXM, NVIDIA's data sheet (no sparsity), at
+# the full 700 W power limit
+BF16_PEAK_FLOPS = 989e12
+# lm_cuda_equals_cpu: both models at full width, 2 layers, float32, TF32
+# off, the same parameters on the card and the CPU. Tolerances:
+LM_EQ_LAYERS = 2
+LM_EQ_LOSS_RTOL = 1e-5           # loss and global gradient norm
+LM_EQ_LEAF_TOL = 1e-4            # gradients, moments, params: of leaf max
+LM_EQ_LOGITS_TOL = 1e-4          # decode logits: of the largest |logit|
+LM_EQ_CONSISTENCY = 2e-3         # prefill vs decode (tests/test_arch_smoke.py)
+# an element whose gradient is within this share of its leaf's largest
+# gradient of zero has an AdamW direction its gradient cannot fix: its
+# update is held only to the step bound 2·lr
+LM_EQ_UNRESOLVED = 1e-3
+
+
+def lm_train_full(args, cfg, batches, dev) -> dict:
+    """olmo-1b at full width and depth trained as
+    examples/train_lm_on_walks.py trains it: each step samples 2^14 walks
+    × 80 from nodes on the main path's final window (fused path), packs
+    them with ``walks_to_lm_batch`` into 8 × 2048 tokens and takes one
+    ``make_train_step`` step (float32 masters, bf16 compute, remat per
+    block, AdamW lr 3e-4, warmup 2, 10 steps). Per step: ms (CUDA events,
+    the packing apart), tokens/s, model FLOP/s as a share of the bf16
+    peak, host syncs, loss, grad norm."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.core.streaming import StreamingEngine
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's final window: every batch ingested, fused path
+    engine = StreamingEngine(cfg, args.edges_per_batch, probes=False)
+    runtime.reset_launches()
+    for b in batches:
+        engine.ingest_batch(*b)
+    mcfg = get_config(LM_TRAIN["arch"])
+    t0 = time.perf_counter()
+    model = M.init_params(mcfg, prng.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(lr=LM_TRAIN["lr"],
+                          warmup_steps=LM_TRAIN["warmup_steps"],
+                          total_steps=LM_TRAIN["steps"])
+    step = make_train_step(model, opt_cfg)
+    params = M.params_of(model)
+    opt = init_opt_state(params, opt_cfg)
+    n_params = M.count_params_analytic(mcfg)
+    n_actual = sum(p.numel() for p in params.values())
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    rows, last_walks = [], None
+    for s in range(LM_TRAIN["steps"]):
+        walks = engine.sample_walks(wcfg)
+        t0 = time.perf_counter()
+        nodes, lengths = walks.nodes.cpu().numpy(), walks.lengths.cpu().numpy()
+        toks, labels = walks_to_lm_batch(nodes, lengths, S, B,
+                                         mcfg.vocab_size, seed=s)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        last_walks = (nodes, lengths)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        (params, opt, metrics), syncs, sites = count_syncs(
+            lambda: step(params, opt, batch))
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        tok_s = B * S / (ms / 1e3)
+        rows.append(dict(step=s, ms=ms, pack_ms=pack_ms, tokens_per_s=tok_s,
+                         model_flops_share=6 * n_params * tok_s
+                         / BF16_PEAK_FLOPS,
+                         host_syncs=syncs, host_sync_sites=sites,
+                         loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]),
+                         lr=float(metrics["lr"])))
+    launches = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more step on the last batch, traced (its result is dropped)
+    step_profile = profile_call(lambda: step(params, opt, batch))
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows]
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"lm_train_full: losses {losses}, grad norms {norms}")
+    require(losses[-1] < losses[0],
+            f"lm_train_full: last loss {losses[-1]} >= first {losses[0]}")
+    walked = LM_TRAIN["steps"]
+    require(launches["fused_hop"] == args.length * walked
+            and launches["weight_prefix"] == 2 * len(batches),
+            f"lm_train_full: launches {launches}")
+    steady = rows[1:]
+    mean_ms = sum(r["ms"] for r in steady) / len(steady)
+    out = dict(arch=mcfg.name, params=n_actual, params_analytic=n_params,
+               dtype=mcfg.dtype, remat=mcfg.remat, batch=B, seq=S,
+               walks_per_step=LM_TRAIN["walks"], init_seconds=init_s,
+               per_step=rows, steady_ms=mean_ms,
+               steady_tokens_per_s=B * S / (mean_ms / 1e3),
+               steady_model_flops_share=6 * n_params * B * S
+               / (mean_ms / 1e3) / BF16_PEAK_FLOPS,
+               peak_source="989 TFLOP/s dense bf16, NVIDIA H100 SXM data "
+                           "sheet, 700 W",
+               first_loss=losses[0], last_loss=losses[-1],
+               launches=launches, peak_mem_gib=peak,
+               train_step_profile=step_profile,
+               phase_seconds=time.perf_counter() - t_phase)
+    del engine, model, params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out, last_walks
+
+
+def lm_serve_full(walks, dev) -> dict:
+    """qwen2-0.5b at full width and depth serving in bf16: 64 prompts of
+    512 walk tokens, ``make_prefill_step`` over them, the KV cache
+    (max_seq 1024) filled by ``decode_step`` over each prompt, then 128
+    tokens decoded greedily by ``make_serve_step``. A decode step must
+    make no host sync (``set_sync_debug_mode("error")``)."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import (make_prefill_step,
+                                              make_serve_step)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = get_config(LM_SERVE["arch"])
+    model = M.cast_for_serving(M.init_params(mcfg, prng.PRNGKey(1), dev))
+    params = M.params_of(model)
+    P, L = LM_SERVE["prompts"], LM_SERVE["prompt_len"]
+    toks, _ = walks_to_lm_batch(*walks, L, P, mcfg.vocab_size, seed=100)
+    prompts = torch.from_numpy(toks).to(dev)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    prefill(params, {"tokens": prompts[:, :8]})          # warm-up
+    start, end = events()
+    torch.cuda.synchronize()
+    start.record()
+    pre_logits = prefill(params, {"tokens": prompts})
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+
+    state = M.init_decode_state(model, P, LM_SERVE["max_seq"])
+    start, end = events()
+    start.record()
+    with torch.no_grad():
+        for t in range(L):
+            logits, state = M.decode_step(model, prompts[:, t:t + 1], state)
+    end.record()
+    end.synchronize()
+    fill_ms = start.elapsed_time(end) / L
+    gap = float((logits.float() - pre_logits.float()).abs().max())
+    agree = float((logits[:, -1].argmax(-1) == pre_logits[:, -1].argmax(-1))
+                  .float().mean())
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    n_new = LM_SERVE["new_tokens"]
+
+    def decode(tok, state):
+        out = []
+        for _ in range(n_new):
+            tok, state = serve(params, tok, state)
+            out.append(tok)
+        return out, tok, state
+
+    start, end = events()
+    start.record()
+    out_toks, tok, state = no_host_sync(decode)(tok, state)
+    end.record()
+    end.synchronize()
+    decode_ms = start.elapsed_time(end) / n_new
+    _, syncs, sites = count_syncs(lambda: serve(params, tok, state))
+    require(syncs == 0, f"lm_serve_full: a decode step synced {sites}")
+    prof = profile_call(lambda: serve(params, tok, state))
+    gen = torch.cat(out_toks, dim=1)
+    require(bool((gen >= 0).all() and (gen < mcfg.vocab_size).all()),
+            "lm_serve_full: a decoded token is out of the vocabulary")
+    require(math.isfinite(gap), "lm_serve_full: non-finite logits")
+    out = dict(arch=mcfg.name, dtype=mcfg.dtype,
+               params=sum(p.numel() for p in params.values()),
+               prompts=P, prompt_len=L, max_seq=LM_SERVE["max_seq"],
+               new_tokens=n_new, prefill_ms=prefill_ms,
+               prefill_tokens_per_s=P * L / (prefill_ms / 1e3),
+               cache_fill_ms_per_step=fill_ms, decode_ms_per_step=decode_ms,
+               decode_tokens_per_s=P / (decode_ms / 1e3),
+               host_syncs_per_decode_step=syncs, decode_step_profile=prof,
+               prefill_vs_decode_max_abs=gap,
+               prefill_vs_decode_argmax_agree=agree,
+               final_pos=int(state.pos), peak_mem_gib=
+               torch.cuda.max_memory_allocated() / 2**30,
+               phase_seconds=time.perf_counter() - t_phase)
+    del model, params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_gap(a, b) -> float:
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _lm_grads(model, params, batch):
+    """The loss's gradient by name at ``params``."""
+    import torch
+    from repro_torch.models import model as M
+    M.bind_params(model, params)
+    named = dict(model.named_parameters())
+    return dict(zip(params, torch.autograd.grad(
+        M.loss_fn(model, batch), [named[n] for n in params])))
+
+
+def lm_cuda_equals_cpu(dev) -> dict:
+    """olmo-1b and qwen2-0.5b at full width, 2 layers, float32, TF32 off,
+    the same parameters on the card and the CPU. Each of 2 train steps
+    starts both from the CPU's state: loss and gradient norm within
+    ``LM_EQ_LOSS_RTOL``; gradients, moments and params within
+    ``LM_EQ_LEAF_TOL`` of each leaf's largest magnitude, except params
+    whose AdamW direction is unresolved (``LM_EQ_UNRESOLVED``), held to
+    the step bound 2·lr. Then, from the initial parameters: 4 decode
+    steps' logits within ``LM_EQ_LOGITS_TOL`` of the largest, prefill vs
+    decode on the card within ``LM_EQ_CONSISTENCY``, 4 greedy tokens
+    equal. (Left free, the two runs part at the unresolved elements,
+    whose ±lr steps change the next gradient: the second step is read
+    from a shared state.)"""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             lr_at, tree_map)
+    from repro_torch.train.train_loop import make_serve_step, make_train_step
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for arch in ("olmo-1b", "qwen2-0.5b"):
+            cfg = dataclasses.replace(get_config(arch),
+                                      num_layers=LM_EQ_LAYERS,
+                                      dtype="float32")
+            card = M.init_params(cfg, prng.PRNGKey(3), dev)
+            host = M.TransformerLM(cfg, None, "cpu")
+            p_card = M.params_of(card)
+            p_host = {n: t.cpu() for n, t in p_card.items()}
+            M.bind_params(host, p_host)
+            rng = np.random.default_rng(5)
+            toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+            labs = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+            batch = {k: torch.from_numpy(v) for k, v in
+                     (("tokens", toks), ("labels", labs))}
+            b_card = {k: v.to(dev) for k, v in batch.items()}
+            opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+            steps = {"card": make_train_step(card, opt_cfg),
+                     "cpu": make_train_step(host, opt_cfg)}
+            p, o = p_host, init_opt_state(p_host, opt_cfg)
+            gaps = dict(loss=0.0, grad_norm=0.0, grads=0.0, mu=0.0, nu=0.0,
+                        params=0.0, unresolved_max_abs=0.0)
+            unresolved, bound = 0, 0.0
+            for t in range(2):
+                pc, oc = tree_map(lambda x: x.to(dev), (p, o))
+                gc = _lm_grads(card, pc, b_card)
+                gh = _lm_grads(host, p, batch)
+                pc, oc, mc = steps["card"](pc, oc, b_card)
+                ph, oh, mh = steps["cpu"](p, o, batch)
+                for k in ("loss", "grad_norm"):
+                    gaps[k] = max(gaps[k], abs(float(mc[k]) - float(mh[k]))
+                                  / abs(float(mh[k])))
+                step_bound = 2 * float(lr_at(opt_cfg, t + 1))
+                bound = max(bound, step_bound)
+                for n, ref in ph.items():
+                    gaps["grads"] = max(gaps["grads"],
+                                        _leaf_gap(gc[n], gh[n]))
+                    gaps["mu"] = max(gaps["mu"], _leaf_gap(oc.mu[n],
+                                                           oh.mu[n]))
+                    gaps["nu"] = max(gaps["nu"], _leaf_gap(oc.nu[n],
+                                                           oh.nu[n]))
+                    unres = gh[n].abs() <= LM_EQ_UNRESOLVED \
+                        * gh[n].abs().max()
+                    diff = (pc[n].cpu() - ref).abs()
+                    if (~unres).any():
+                        gaps["params"] = max(gaps["params"], float(
+                            diff[~unres].max() / ref.abs().max()))
+                    if unres.any():
+                        gaps["unresolved_max_abs"] = max(
+                            gaps["unresolved_max_abs"],
+                            float(diff[unres].max()) / step_bound)
+                    unresolved += int(unres.sum())
+                p, o = ph, oh
+            require(gaps["loss"] <= LM_EQ_LOSS_RTOL
+                    and gaps["grad_norm"] <= LM_EQ_LOSS_RTOL
+                    and max(gaps[k] for k in ("grads", "mu", "nu",
+                                              "params")) <= LM_EQ_LEAF_TOL
+                    and gaps["unresolved_max_abs"] <= 1.0,
+                    f"lm_cuda_equals_cpu {arch}: {gaps}")
+            del pc, oc, gc, gh
+
+            # decode from the initial parameters: 4 steps, then greedy
+            dec = {}
+            for name, model, params, d in (("card", card, p_card, dev),
+                                           ("cpu", host, p_host, "cpu")):
+                M.bind_params(model, params)
+                t = batch["tokens"].to(d)
+                st = M.init_decode_state(model, 2, 16)
+                lg = []
+                with torch.no_grad():
+                    for i in range(8):
+                        x, st = M.decode_step(model, t[:, i:i + 1], st)
+                        lg.append(x[:, 0])
+                    pre, _, _ = M.forward(model, {"tokens": t[:, :8]})
+                    pre = M.logits_from_hidden(model, pre)
+                serve = make_serve_step(model)
+                tok, gen = t[:, 8:9], []
+                for _ in range(4):
+                    tok, st = serve(params, tok, st)
+                    gen.append(tok)
+                dec[name] = dict(logits=torch.stack(lg, 1).cpu(),
+                                 prefill=pre.cpu(),
+                                 greedy=torch.cat(gen, 1).cpu())
+            lc, lh = dec["card"]["logits"], dec["cpu"]["logits"]
+            logit_gap = float((lc[:, :4] - lh[:, :4]).abs().max()
+                              / lh.abs().max())
+            consist = float((dec["card"]["prefill"] - lc).abs().max())
+            consist_ok = torch.allclose(lc, dec["card"]["prefill"],
+                                        rtol=LM_EQ_CONSISTENCY,
+                                        atol=LM_EQ_CONSISTENCY)
+            greedy_equal = torch.equal(dec["card"]["greedy"],
+                                       dec["cpu"]["greedy"])
+            require(logit_gap <= LM_EQ_LOGITS_TOL and consist_ok
+                    and greedy_equal,
+                    f"lm_cuda_equals_cpu {arch}: logits {logit_gap}, "
+                    f"prefill/decode {consist}, greedy {greedy_equal}")
+            out[arch] = dict(
+                layers=LM_EQ_LAYERS, params=sum(
+                    v.numel() for v in p_host.values()),
+                steps=2, of_leaf_max={k: gaps[k] for k in (
+                    "grads", "mu", "nu", "params")},
+                loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
+                unresolved_elements=unresolved,
+                unresolved_max_of_step_bound=gaps["unresolved_max_abs"],
+                step_bound=bound, decode_logits_of_max=logit_gap,
+                prefill_vs_decode_max_abs=consist, greedy_equal=True)
+            del card, host, p_card, p_host, p, o, dec
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["tolerances"] = dict(loss_rtol=LM_EQ_LOSS_RTOL,
+                             leaf_tol=LM_EQ_LEAF_TOL,
+                             logits_tol=LM_EQ_LOGITS_TOL,
+                             consistency=LM_EQ_CONSISTENCY,
+                             unresolved=LM_EQ_UNRESOLVED)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -3175,6 +3559,12 @@ def main(argv=None) -> int:
     emit("train_embeddings", **train, cuts=cuts)
     emit("train_cuda_equals_cpu", **train_cuda_equals_cpu(dev))
     emit("optimizer_cuda_equals_cpu", **optimizer_cuda_equals_cpu(dev))
+
+    # ---- phase 11: the walk-native LM consumer ---------------------------
+    lm_train, lm_walks = lm_train_full(args, cfg, batches, dev)
+    emit("lm_train_full", **lm_train, cuts=cuts)
+    emit("lm_serve_full", **lm_serve_full(lm_walks, dev))
+    emit("lm_cuda_equals_cpu", **lm_cuda_equals_cpu(dev))
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -3193,6 +3583,7 @@ def main(argv=None) -> int:
              sharded_walks_launches=sharded_w["paths"]["fused"]["launches"][
                  "fused_hop"],
              train_embeddings_launches=train["launches"]["fused_hop"],
+             lm_train_launches=lm_train["launches"]["fused_hop"],
              **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
@@ -3209,6 +3600,7 @@ def main(argv=None) -> int:
                  "weight_prefix"],
              serve_sharded_launches=serve_sh["launches"]["weight_prefix"],
              train_embeddings_launches=train["launches"]["weight_prefix"],
+             lm_train_launches=lm_train["launches"]["weight_prefix"],
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]
                  for r in ckpt["runs"]],

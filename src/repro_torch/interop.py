@@ -1,7 +1,8 @@
 """State carried across from the reference into the port's types.
 
 The functions take the reference's ``EdgeStore``, ``TemporalIndex``,
-``WindowState``, ``LaneParams``, ``SkipgramState`` and ``OptState`` as
+``WindowState``, ``LaneParams``, ``SkipgramState``, ``OptState`` and the
+LM's params, moments and decode state as
 NamedTuples or dicts whose fields are numpy arrays (or anything
 ``numpy.asarray`` accepts), and a key as two uint32 words. Tests use them
 to feed the reference's own index — its ``pexp``/``plin`` among it — into
@@ -156,3 +157,160 @@ def opt_state_from_ref(state, device=None) -> OptState:
     return OptState(step=_tensor(_get(state, "step"), np.int32, device),
                     **{f: tree_from_ref(_get(state, f), device)
                        for f in ("mu", "nu", "error")})
+
+
+# ---------------------------------------------------------------------------
+# The walk-native LM (repro_torch.models)
+# ---------------------------------------------------------------------------
+#
+# The reference's LM params are a tree {"embed": {"table"}, "final_norm",
+# "layers": [segment trees], "unembed"?}; segment si holds
+# {"pos{j}": layer tree} with every leaf stacked [n_periods, ...] by
+# jax.vmap. The port's ``TransformerLM`` unstacks them: its parameter
+# ``layers.{si}.{period}.pos{j}.<path>`` is row ``period`` of the leaf at
+# ``layers/{si}/pos{j}/<path>``; every other parameter ``a.b`` is the leaf
+# at ``a/b``. Optimiser moments have the params' structure on both sides.
+
+
+def _lm_skeleton(cfg):
+    """A ``TransformerLM`` of ``cfg`` on the meta device: names, shapes
+    and module structure, no storage."""
+    from repro_torch.models.model import TransformerLM
+    return TransformerLM(cfg, None, "meta")
+
+
+def _torch_from_array(x, device) -> torch.Tensor:
+    """A tensor from an array (numpy, or anything ``numpy.asarray``
+    takes), bfloat16 included, with its dtype kept."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                .copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _ref_leaf(tree, name: str):
+    """(leaf, period) of the reference tree for a port parameter name;
+    period is None outside the stacked layers."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        node = tree["layers"][int(parts[1])]
+        period, parts = int(parts[2]), parts[3:]
+    else:
+        node, period = tree, None
+    for p in parts:
+        node = node[p]
+    return node, period
+
+
+def lm_tree_from_ref(tree, cfg, device=None):
+    """Port parameter names → tensors, from a reference params (or moment)
+    tree of ``cfg``'s model: each stacked leaf split over its periods."""
+    device = resolve_device(device)
+    out, cache = {}, {}
+    for name, _ in _lm_skeleton(cfg).named_parameters():
+        leaf, period = _ref_leaf(tree, name)
+        if id(leaf) not in cache:
+            cache[id(leaf)] = np.asarray(leaf)
+        arr = cache[id(leaf)]
+        out[name] = _torch_from_array(arr if period is None else arr[period],
+                                      device)
+    return out
+
+
+def lm_tree_to_ref(named, cfg):
+    """The reference's tree (numpy leaves, stacked over periods, empty
+    dicts for norms without parameters) from port names → tensors."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def module_tree(mod, prefix):
+        node = {n: arr(named[prefix + n])
+                for n, _ in mod.named_parameters(recurse=False)}
+        for n, child in mod.named_children():
+            node[n] = module_tree(child, f"{prefix}{n}.")
+        return node
+
+    skel = _lm_skeleton(cfg)
+    tree = {n: module_tree(child, n + ".")
+            for n, child in skel.named_children() if n != "layers"}
+    layers = []
+    for si, seg in enumerate(skel.layers):
+        periods = [module_tree(period, f"layers.{si}.{pi}.")
+                   for pi, period in enumerate(seg)]
+        layers.append(_stack_trees(periods))
+    tree["layers"] = layers
+    return tree
+
+
+def _stack_trees(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def lm_params_from_ref(params, cfg, device=None):
+    """A ``TransformerLM`` holding the reference's params (``init_params``
+    output or a restored checkpoint), on CUDA unless ``device`` names
+    another."""
+    from repro_torch.models.model import TransformerLM, bind_params
+    device = resolve_device(device)
+    model = TransformerLM(cfg, None, device)
+    bind_params(model, lm_tree_from_ref(params, cfg, device))
+    return model
+
+
+def lm_params_to_ref(model, cfg=None):
+    """The reference's params tree (numpy) of a ``TransformerLM``."""
+    from repro_torch.models.model import params_of
+    return lm_tree_to_ref(params_of(model), cfg or model.cfg)
+
+
+def lm_opt_state_from_ref(state, cfg, device=None) -> OptState:
+    """An LM ``OptState`` (moments by port parameter name) from the
+    reference's."""
+    device = resolve_device(device)
+    error = _get(state, "error")
+    return OptState(step=_tensor(_get(state, "step"), np.int32, device),
+                    mu=lm_tree_from_ref(_get(state, "mu"), cfg, device),
+                    nu=lm_tree_from_ref(_get(state, "nu"), cfg, device),
+                    error=None if error is None
+                    else lm_tree_from_ref(error, cfg, device))
+
+
+def lm_opt_state_to_ref(state: OptState, cfg) -> OptState:
+    """The reference's ``OptState`` layout (numpy leaves) of an LM
+    ``OptState``: what ``train.checkpoint.save`` writes in its format."""
+    return OptState(step=np.asarray(state.step.cpu(), np.int32),
+                    mu=lm_tree_to_ref(state.mu, cfg),
+                    nu=lm_tree_to_ref(state.nu, cfg),
+                    error=None if state.error is None
+                    else lm_tree_to_ref(state.error, cfg))
+
+
+def decode_state_from_ref(state, cfg, device=None):
+    """The port's ``DecodeState`` from the reference's: per-segment
+    ``KVCache``s stacked over periods (``k``/``v`` ``[n_periods, B,
+    S_max, Hkv, D]``, ``pos`` ``[n_periods]`` int32) become one cache per
+    layer in ``[B, Hkv, S_max, D]`` and one position (every layer's is
+    the same)."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import DecodeState
+    from repro_torch.models.transformer import build_segments
+    device = resolve_device(device)
+    caches, positions = [], []
+    for si, seg in enumerate(build_segments(cfg)):
+        seg_state = _get(state, "caches")[si]
+        for p in range(seg.n_periods):
+            for j in range(len(seg.period)):
+                c = seg_state[f"pos{j}"]
+                k, v = (_torch_from_array(np.asarray(_get(c, f))[p], device)
+                        .permute(0, 2, 1, 3).contiguous() for f in "kv")
+                caches.append(KVCache(k=k, v=v))
+                positions.append(int(np.asarray(_get(c, "pos"))[p]))
+    if len(set(positions)) != 1:
+        raise ValueError(f"layers at different positions: {positions}")
+    return DecodeState(caches=caches,
+                       pos=torch.tensor(positions[0], dtype=torch.int32,
+                                        device=device))

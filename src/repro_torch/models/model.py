@@ -1,0 +1,298 @@
+"""Top-level model API, PyTorch port of repro/models/model.py, for
+``family="dense"`` (the other families: ROADMAP queue 1 items 5b–5d).
+
+* ``init_params(cfg, key, device)``      — a ``TransformerLM`` (float32
+  masters, drawn with the reference's threefry keys)
+* ``forward(model, batch)``              — pre-logits for train/prefill
+* ``loss_fn(model, batch)``              — sequence-chunked cross-entropy
+* ``init_decode_state(model, B, S)``     — KV caches and the position
+* ``decode_step(model, tokens, state)``  — one-token serve step
+
+Batch dict keys: ``tokens`` [B, S] (+ ``labels`` for train), integer
+tensors on the model's device. The model's parameters are float32 and
+are cast to ``cfg.dtype`` where they are applied; ``cast_for_serving``
+stores them in that dtype once, for a model that only serves.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import random as prng
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (Embedding, Norm, embed,
+                                       positional_tables,
+                                       sinusoidal_positions)
+
+SEQ_CHUNK = 256         # sequence-chunked cross-entropy block
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class TransformerLM(nn.Module):
+    """``embed``, ``layers`` (``layers[si][period]["pos{j}"]``),
+    ``final_norm`` and, untied, ``unembed``: the reference's parameter
+    tree with each segment unstacked over its periods. On CUDA unless
+    ``device`` names another; ``key`` None leaves it uninitialised."""
+
+    def __init__(self, cfg: ModelConfig, key=None, device=None):
+        super().__init__()
+        tfm.check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        ks = prng.split(key, 8) if key is not None else [None] * 8
+        self.segments = tfm.build_segments(cfg)
+        self.embed = Embedding(ks[0], cfg.vocab_size, cfg.d_model, device)
+        self.final_norm = Norm(cfg.norm, cfg.d_model, device)
+        self.layers = tfm.init_stack(ks[1], cfg, self.segments, device)
+        if not cfg.tie_embeddings:
+            self.unembed = Embedding(ks[2], cfg.vocab_size, cfg.d_model,
+                                     device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def out_table(self) -> torch.Tensor:
+        return self.embed.table if self.cfg.tie_embeddings \
+            else self.unembed.table
+
+
+def init_params(cfg: ModelConfig, key, device=None) -> TransformerLM:
+    """The model with the reference's initial values (within the
+    ``erfinv`` gap of ``random.truncated_normal``), on CUDA unless
+    ``device`` names another. ``key`` None leaves it uninitialised."""
+    return TransformerLM(cfg, key, device)
+
+
+def params_of(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name, detached (sharing storage): the
+    params tree of the train and serve steps."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def bind_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Point each parameter of ``model`` at the tensor of the same name
+    (no copy; a parameter already there is left alone). The dict last
+    bound is remembered, and binding it again costs nothing: a step
+    called in a loop with one params dict (serving) skips the walk over
+    the parameters, so give a new dict, not an edited one, to rebind."""
+    if getattr(model, "_bound_params", None) is params:
+        return
+    for n, p in model.named_parameters():
+        t = params[n]
+        if p.data_ptr() != t.data_ptr() or p.shape != t.shape \
+                or p.dtype != t.dtype:
+            p.data = t.detach()
+    model._bound_params = params
+
+
+def cast_for_serving(model: TransformerLM) -> TransformerLM:
+    """Store every parameter that is only ever applied in ``cfg.dtype``
+    (matrices, tables, QKV biases) in that dtype, in place; norm
+    parameters stay float32, as they apply in float32. The cast is the
+    one the forward makes, so the outputs keep their bits, and a decode
+    step stops re-casting its weights (for qwen2-0.5b, the 136M-element
+    tied table each step). For a model that serves: training keeps its
+    float32 masters."""
+    dtype = compute_dtype(model.cfg)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Norm):
+                continue
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    model._bound_params = None
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Positions and forward
+# ---------------------------------------------------------------------------
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None] \
+        .expand(B, S)
+
+
+def forward(model: TransformerLM, batch):
+    """Full-sequence forward. Returns (pre-logits x, positions, aux)."""
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(model.embed, tokens, dtype)
+    pos = _positions(B, S, x.device)
+    if cfg.attention.rope == "sinusoidal":
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(dtype)
+    x = tfm.apply_stack(model.layers, cfg, x,
+                        positional_tables(cfg.attention, pos))
+    x = model.final_norm(x)
+    return x, pos, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_from_hidden(model: TransformerLM, x: torch.Tensor):
+    return x @ model.out_table().to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Sequence-chunked cross-entropy: never materializes [B, S, V] logits
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(xs, tab, tg):
+    logits = (xs @ tab.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, 2, tg[..., None].long())[..., 0]
+    return torch.sum(lse - tl)
+
+
+def cross_entropy_chunked(x, table, targets, *, chunk: int = SEQ_CHUNK):
+    """x: [B, S, d]; table: [V, d]; targets: [B, S]. Mean NLL in float32.
+
+    Sequence chunks of ``chunk``: each materialises only [B, chunk, V]
+    float32 logits, recomputed in the backward (the reference's
+    ``jax.checkpoint`` around its scan body); the chunk sums are added in
+    sequence order."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    tab = table.to(x.dtype)
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (x[:, c0:c0 + chunk], tab, targets[:, c0:c0 + chunk])
+        part = checkpoint(_chunk_nll, *args, use_reentrant=False) \
+            if remat else _chunk_nll(*args)
+        total = total + part
+    return total / (B * S)
+
+
+def loss_fn(model: TransformerLM, batch):
+    x, _, aux = forward(model, batch)
+    labels = batch["labels"]
+    S_l = labels.shape[1]
+    loss = cross_entropy_chunked(x[:, -S_l:, :], model.out_table(), labels)
+    return loss + aux
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+class DecodeState(NamedTuple):
+    caches: List[KVCache]   # one per layer, in layer order
+    pos: torch.Tensor       # int32, 0-d: tokens already written
+
+
+def init_decode_state(model: TransformerLM, batch: int,
+                      max_seq: int) -> DecodeState:
+    cfg = model.cfg
+    dev = model.device
+    return DecodeState(
+        caches=tfm.init_stack_cache(cfg, model.segments, batch, max_seq,
+                                    compute_dtype(cfg), dev),
+        pos=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def decode_step(model: TransformerLM, tokens, state: DecodeState):
+    """tokens: [B, 1]. Returns (logits [B, 1, V], state): the caches are
+    written and ``pos`` advanced in place, on the device, so the step
+    reads nothing back to the host. Every layer sits at the same
+    position, so the rotation tables are computed once a step."""
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    B = tokens.shape[0]
+    x = embed(model.embed, tokens, dtype)
+    posf = state.pos.expand(B, 1)
+    if cfg.attention.rope == "sinusoidal":
+        x = x + sinusoidal_positions(posf, cfg.d_model).to(dtype)
+    tables = positional_tables(cfg.attention, posf)
+    x = tfm.decode_stack(model.layers, cfg, x, state.caches, state.pos,
+                         tables)
+    x = model.final_norm(x)
+    state.pos.add_(1)
+    return logits_from_hidden(model, x), state
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter counts (roofline 6ND)
+# ---------------------------------------------------------------------------
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    att = cfg.attention
+    d = cfg.d_model
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+
+    def attn_params() -> int:
+        if att.kind == "mla":
+            qk = att.qk_nope_head_dim + att.qk_rope_head_dim
+            return (d * att.q_lora_rank
+                    + att.q_lora_rank * att.n_heads * qk
+                    + d * (att.kv_lora_rank + att.qk_rope_head_dim)
+                    + att.kv_lora_rank * att.n_heads
+                    * (att.qk_nope_head_dim + att.v_head_dim)
+                    + att.n_heads * att.v_head_dim * d)
+        return (d * att.n_heads * att.head_dim
+                + 2 * d * att.n_kv_heads * att.head_dim
+                + att.n_heads * att.head_dim * d)
+
+    def mlp_params(ff: int) -> int:
+        mult = 3 if cfg.activation in ("swiglu", "geglu") else 2
+        return mult * d * ff
+
+    def moe_params(active: bool) -> int:
+        m = cfg.moe
+        n_e = m.top_k if active else m.num_experts
+        n = d * m.num_experts            # router
+        n += n_e * 3 * d * m.expert_d_ff
+        if m.num_shared_experts:
+            n += mlp_params(m.shared_d_ff * m.num_shared_experts)
+        if m.dense_residual:
+            n += mlp_params(m.dense_residual_d_ff)
+        return n
+
+    def ssm_params(kind: str) -> int:
+        s = cfg.ssm
+        if kind == "mamba":
+            di = s.expand * d
+            dt_rank = max(1, math.ceil(d / 16))
+            return (2 * d * di + s.d_conv * di + di * (dt_rank + 2 * s.d_state)
+                    + dt_rank * di + di * s.d_state + 2 * di + di * d)
+        if kind == "mlstm":
+            di = int(s.proj_factor * d)
+            dh = di // s.num_heads
+            return (2 * d * di + 3 * di * s.num_heads * dh
+                    + 2 * di * s.num_heads + di * d + di)
+        if kind == "slstm":
+            di = d
+            dh = di // s.num_heads
+            return (4 * d * di + s.num_heads * dh * 4 * dh
+                    + 2 * di * (4 * di // 3) + 5 * di)
+        raise ValueError(kind)
+
+    for spec in tfm.layer_specs(cfg):
+        if spec.kind == "attn":
+            total += attn_params()
+            if cfg.family == "enc_dec":
+                total += attn_params()     # cross-attention
+        else:
+            total += ssm_params(spec.kind)
+        if spec.ffn == "dense":
+            total += mlp_params(cfg.d_ff)
+        elif spec.ffn == "moe":
+            total += moe_params(active_only)
+    if cfg.family == "enc_dec":
+        total += cfg.encoder_layers * (attn_params() + mlp_params(cfg.d_ff))
+    return int(total)

@@ -1,0 +1,204 @@
+"""Layer assembly: per-layer specs, segment grouping, block stacks.
+PyTorch port of repro/models/transformer.py.
+
+A ``LayerSpec`` is (kind, ffn). Consecutive layers are grouped into
+*segments* of repeating periods exactly as the reference groups them,
+since that decides its parameter tree: the reference stacks a segment's
+parameters over periods (``layers[si]["pos{j}"]``, leaves
+``[n_periods, ...]``) and scans them; here each period is a
+``ModuleDict`` of ``Block``s (``layers[si][period]["pos{j}"]``), run in
+a Python loop. ``repro_torch.interop`` unstacks and restacks.
+
+The port builds ``kind="attn"`` layers with ``ffn`` dense or none.
+Mamba, mLSTM and sLSTM layers, MoE FFNs and cross-attention raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Tuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import random as prng
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import (Attention, DecodeSlot, KVCache,
+                                          decode_slot, gqa_init_cache)
+from repro_torch.models.layers import MLP, Norm
+
+
+class LayerSpec(NamedTuple):
+    kind: str     # attn | mamba | mlstm | slstm
+    ffn: str      # dense | moe | none
+
+
+class Segment(NamedTuple):
+    n_periods: int
+    period: Tuple[LayerSpec, ...]
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    specs = []
+    m = cfg.moe
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_pattern[i % len(cfg.layer_pattern)]
+        if kind in ("mlstm", "slstm") or cfg.d_ff == 0:
+            ffn = "none"
+        elif m is None:
+            ffn = "dense"
+        elif i < m.first_dense_layers:
+            ffn = "dense"
+        elif m.every_k_layers > 1 and (i % m.every_k_layers) != m.every_k_layers - 1:
+            ffn = "dense"
+        else:
+            ffn = "moe"
+        specs.append(LayerSpec(kind, ffn))
+    return specs
+
+
+def build_segments(cfg: ModelConfig) -> List[Segment]:
+    specs = layer_specs(cfg)
+    segments: List[Segment] = []
+    prefix = cfg.moe.first_dense_layers if cfg.moe else 0
+    if prefix:
+        segments.append(Segment(1, tuple(specs[:prefix])))
+        specs = specs[prefix:]
+    if not specs:
+        return segments
+    period_len = len(cfg.layer_pattern)
+    if cfg.moe and cfg.moe.every_k_layers > 1:
+        period_len = math.lcm(period_len, cfg.moe.every_k_layers)
+    if len(specs) % period_len:
+        period_len = len(specs)
+    segments.append(Segment(len(specs) // period_len,
+                            tuple(specs[:period_len])))
+    return segments
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what the port does not build yet, naming the ROADMAP item."""
+    if cfg.family == "enc_dec":
+        raise NotImplementedError(
+            "cross-attention (enc-dec) is not ported yet: ROADMAP queue 1 "
+            "item 5d")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "VLM inputs and M-RoPE positions are not ported yet: ROADMAP "
+            "queue 1 item 5d")
+    for spec in layer_specs(cfg):
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{spec.kind} layers are not ported yet: ROADMAP queue 1 "
+                "item 5c")
+        if spec.ffn == "moe":
+            raise NotImplementedError(
+                "MoE FFNs are not ported yet: ROADMAP queue 1 item 5b")
+    if cfg.attention.kind != "gqa":
+        raise NotImplementedError(
+            f"attention kind {cfg.attention.kind!r} is not ported yet: "
+            "ROADMAP queue 1 item 5b")
+    if cfg.attention.rope == "mrope":
+        raise NotImplementedError(
+            "M-RoPE positions are not ported yet: ROADMAP queue 1 item 5d")
+
+
+# ---------------------------------------------------------------------------
+# One layer
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """Pre-norm attention and dense FFN with residuals: ``norm1``,
+    ``attn``, and with ``ffn="dense"`` ``norm2`` and ``mlp`` (the kinds
+    ``check_supported`` admits)."""
+
+    def __init__(self, key, cfg: ModelConfig, spec: LayerSpec, device=None):
+        super().__init__()
+        ks = prng.split(key, 6) if key is not None else [None] * 6
+        self.cfg, self.spec = cfg, spec
+        self.norm1 = Norm(cfg.norm, cfg.d_model, device)
+        self.attn = Attention(ks[0], cfg.attention, cfg.d_model, device)
+        if spec.ffn == "dense":
+            self.norm2 = Norm(cfg.norm, cfg.d_model, device)
+            self.mlp = MLP(ks[2], cfg.d_model, cfg.d_ff, cfg.activation,
+                           device)
+
+    def _ffn(self, x):
+        if self.spec.ffn == "dense":
+            x = x + self.mlp(self.norm2(x))
+        return x
+
+    def forward(self, x, tables):
+        x = x + self.attn(self.norm1(x), tables, causal=True,
+                          window=self.cfg.attention.window)
+        return self._ffn(x)
+
+    def decode(self, x, cache: KVCache, at: DecodeSlot, tables):
+        x = x + self.attn.decode(self.norm1(x), cache, at, tables)
+        return self._ffn(x)
+
+
+# ---------------------------------------------------------------------------
+# Segment stacks
+# ---------------------------------------------------------------------------
+
+
+def init_stack(key, cfg: ModelConfig, segments: List[Segment],
+               device=None) -> nn.ModuleList:
+    """``stack[si][period]["pos{j}"]``. Keys as the reference draws them:
+    segment ``si`` folds ``si`` into ``key``, its periods take
+    ``split(·, n_periods)``, and position ``j`` folds in ``j``; the
+    reference ``vmap``s over periods, which draws the same bits as one
+    period at a time. ``key=None`` leaves the parameters uninitialised."""
+    stacks = nn.ModuleList()
+    for si, seg in enumerate(segments):
+        keys = prng.split(prng.fold_in(key, si), seg.n_periods) \
+            if key is not None else [None] * seg.n_periods
+        stacks.append(nn.ModuleList(
+            nn.ModuleDict({
+                f"pos{j}": Block(None if k is None else prng.fold_in(k, j),
+                                 cfg, spec, device)
+                for j, spec in enumerate(seg.period)})
+            for k in keys))
+    return stacks
+
+
+def blocks(stacks: nn.ModuleList) -> List[Block]:
+    """Every block in layer order."""
+    return [period[f"pos{j}"] for seg in stacks for period in seg
+            for j in range(len(period))]
+
+
+def init_stack_cache(cfg: ModelConfig, segments: List[Segment], batch: int,
+                     max_seq: int, dtype, device=None) -> List[KVCache]:
+    """One cache per layer, in layer order."""
+    return [gqa_init_cache(cfg.attention, batch, max_seq, dtype, device)
+            for seg in segments for _ in range(seg.n_periods)
+            for _ in seg.period]
+
+
+def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables):
+    """Full-sequence forward through every block. With ``cfg.remat ==
+    "block"`` and autograd on, each period is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` around its scan body."""
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for seg in stacks:
+        for period in seg:
+            def run(xc, period=period):
+                for j in range(len(period)):
+                    xc = period[f"pos{j}"](xc, tables)
+                return xc
+            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+    return x
+
+
+def decode_stack(stacks: nn.ModuleList, cfg: ModelConfig, x,
+                 caches: List[KVCache], pos, tables):
+    """One decode step through every block at position ``pos``."""
+    at = decode_slot(pos, caches[0].k.shape[2], cfg.attention.window)
+    for blk, cache in zip(blocks(stacks), caches):
+        x = blk.decode(x, cache, at, tables)
+    return x

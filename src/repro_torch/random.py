@@ -147,12 +147,22 @@ def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: KeyLike, shape: Sequence[int],
-            device: torch.device | str | None = None) -> torch.Tensor:
-    """float32 U[0, 1) of ``shape`` (``jax.random.uniform``), on CUDA unless
-    ``device`` names another."""
+            device: torch.device | str | None = None,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """float32 U[minval, maxval) of ``shape`` (``jax.random.uniform``), on
+    CUDA unless ``device`` names another: the unit floats, then
+    ``max(minval, floats·(maxval − minval) + minval)`` with the bounds
+    taken as float32. XLA fuses the product and the sum into one
+    multiply-add, rounded once; here both are taken in float64, where
+    they are exact for bounds of like magnitude, and rounded once."""
     k1, k2 = key_words(key)
     bits = _bits(k1, k2, math.prod(shape), resolve_device(device))
-    return _to_unit_float(bits.reshape(tuple(shape)))
+    u = _to_unit_float(bits.reshape(tuple(shape)))
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo, hi = np.float32(minval), np.float32(maxval)
+    u = (u.double() * float(hi - lo) + float(lo)).to(torch.float32)
+    return torch.clamp_min(u, float(lo))
 
 
 def _bits(k1, k2, n: int, device) -> torch.Tensor:
@@ -217,3 +227,26 @@ def normal(key: KeyLike, shape: Sequence[int],
     # rounds to 2.0 in float32, then max(lo, ·)
     u = torch.clamp_min(u * 2.0 + _NORMAL_LO, _NORMAL_LO)
     return torch.erfinv(u) * _SQRT2
+
+
+def truncated_normal(key: KeyLike, lower: float, upper: float,
+                     shape: Sequence[int],
+                     device: torch.device | str | None = None
+                     ) -> torch.Tensor:
+    """float32 normals truncated to ``(lower, upper)`` (``jax.random.
+    truncated_normal``), on CUDA unless ``device`` names another.
+
+    jax's algorithm: ``a, b = erf(lower/√2), erf(upper/√2)`` in float32,
+    a uniform on ``[a, b)`` from the key's bits (equal to jax's), then
+    ``√2·erfinv(u)`` clipped to ``(nextafter(lower, +inf),
+    nextafter(upper, −inf))``. ``torch.erf``/``torch.erfinv`` are not
+    XLA's approximations, so values agree with jax's within the
+    ``erfinv`` gap of ``normal``."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    ends = torch.erf(torch.tensor([lo, hi], dtype=torch.float32)
+                     / torch.tensor(_SQRT2, dtype=torch.float32))
+    a, b = (float(x) for x in ends)
+    u = uniform(key, shape, device, minval=a, maxval=b)
+    out = torch.erfinv(u) * _SQRT2
+    return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
+                       float(np.nextafter(hi, np.float32(-np.inf))))

@@ -1,8 +1,8 @@
 """Training side, PyTorch port of repro/train: skipgram embeddings on
 streamed walks (``embeddings``), AdamW with int8 error feedback
 (``optimizer``) and the leaf and sharded-window checkpoints
-(``checkpoint``). The LM training loop (``train_loop``) waits for the
-model zoo."""
+(``checkpoint``), and the LM's train, eval, serve and prefill steps
+(``train_loop``, over ``repro_torch.models``)."""
 from repro_torch.train.embeddings import (
     SkipgramState,
     init_skipgram,

@@ -684,3 +684,113 @@ def test_apply_updates_int8_card_equals_cpu(card):
                      (cs.nu[k], ps.nu[k])):
             gap = (a.cpu() - b).abs().max()
             assert gap <= 1e-6 * b.abs().max(), k
+
+
+def _lm(arch, device, **kw):
+    """A reduced LM of ``arch`` (``configs.reduced``) drawn on the CPU and
+    carried to ``device``, with a numpy batch."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)), **kw)
+    host = M.init_params(cfg, prng.PRNGKey(0), "cpu")
+    model = M.TransformerLM(cfg, None, device)
+    M.bind_params(model, {n: t.to(device)
+                          for n, t in M.params_of(host).items()})
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+    return model, batch
+
+
+def test_lm_train_bf16_remat_on_card(card):
+    """``lm_train_full``'s small case: bf16 compute from float32 masters,
+    remat per block, 6 AdamW steps on one batch: finite, the loss falls,
+    the masters stay float32."""
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    model, batch = _lm("olmo-1b", card, dtype="bfloat16", remat="block")
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=6)
+    step = make_train_step(model, cfg)
+    p = M.params_of(model)
+    o = init_opt_state(p, cfg)
+    losses = []
+    for _ in range(6):
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+        assert np.isfinite(float(m["grad_norm"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert all(t.dtype == torch.float32
+               and t.device.type == torch.device(card).type
+               for t in p.values())
+
+
+def test_lm_decode_bf16_makes_no_host_sync(card):
+    """``lm_serve_full``'s small case: a served bf16 model decodes with no
+    host sync, the position on the card; the prompt's last decode logits
+    are the prefill's within bf16 rounding."""
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import (make_prefill_step,
+                                              make_serve_step)
+    model, batch = _lm("qwen2-0.5b", card, dtype="bfloat16")
+    M.cast_for_serving(model)
+    p = M.params_of(model)
+    toks = batch["tokens"]
+    pre = make_prefill_step(model)(p, {"tokens": toks})
+    state = M.init_decode_state(model, 2, 48)
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            lg, state = M.decode_step(model, toks[:, t:t + 1], state)
+    assert (lg.float() - pre.float()).abs().max() <= 0.1
+    serve = make_serve_step(model)
+    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            tok, state = serve(p, tok, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state.pos) == toks.shape[1] + 8
+
+
+def test_lm_card_equals_cpu(card):
+    """``lm_cuda_equals_cpu``'s small case: reduced qwen2-0.5b in float32,
+    TF32 off: loss rtol 1e-5, gradients within 1e-4 of each leaf's
+    largest magnitude, 8 decode steps' logits within 1e-4 of the largest,
+    the same greedy tokens."""
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import make_serve_step
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model, batch = _lm("qwen2-0.5b", dev)
+            loss = M.loss_fn(model, batch)
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            state = M.init_decode_state(model, 2, 16)
+            logits = []
+            with torch.no_grad():
+                for t in range(8):
+                    lg, state = M.decode_step(
+                        model, batch["tokens"][:, t:t + 1], state)
+                    logits.append(lg.cpu())
+            serve, tok, gen = make_serve_step(model), lg[:, -1].argmax(-1) \
+                .to(torch.int32)[:, None], []
+            for _ in range(4):
+                tok, state = serve(M.params_of(model), tok, state)
+                gen.append(tok.cpu())
+            runs[dev] = (float(loss), dict(zip(names, grads)),
+                         torch.cat(logits), torch.cat(gen, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cl, cg, clg, cgen), (hl, hg, hlg, hgen) = runs["cuda"], runs["cpu"]
+    assert abs(cl - hl) <= 1e-5 * abs(hl)
+    for n, g in hg.items():
+        assert (cg[n].cpu() - g).abs().max() <= 1e-4 * g.abs().max(), n
+    assert (clg - hlg).abs().max() <= 1e-4 * hlg.abs().max()
+    assert torch.equal(cgen, hgen)
