@@ -22,7 +22,7 @@ stream through the node-partitioned window with 4 shards on the card
 (``DistributedStreamingEngine``, byte-equal to the single-device replay
 across a live ``rebalance``), samples walk-axis-sharded walks on the
 fused, tiled and grouped paths, holds small sharded replays, reshards
-and the static walker to the CPU and to one shard, serves 256 queries
+and the static walker to the CPU and to one shard, serves 96 queries
 through ``WalkService(num_shards=4)`` on the main path's window while its
 next batch is ingested (every ticket equal to the single-device
 service's), holds small sharded services to the CPU and to single-device
@@ -35,8 +35,12 @@ resumes a ``TrainSupervisor`` run from its checkpoint, trains olmo-1b at
 full size on token streams of the main path's walks (``make_train_step``,
 bf16, remat per block), serves qwen2-0.5b at full size from its KV cache
 (prefill, cache fill, greedy decode with no host sync), holds both models
-at full width and 2 layers on the card to the CPU, and prints one
-JSON line per phase. The last three lines are the kernels
+at full width and 2 layers on the card to the CPU, serves deepseek-v2-236b
+(MLA, 160 routed experts) and arctic-480b (128 experts and a dense
+residual) at full width and cut depth in bf16 on prompts of the same
+walks, holds both MoE models reduced on the card to the CPU, and prints
+one JSON line per phase, each with its wall seconds (``wall_s``, since
+the line before). The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero. With no CUDA device, or
 without the package next to it, it exits 2 and prints no result.
@@ -87,8 +91,16 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``; ``wall_s`` is the wall time since the
+    previous line (the script's start for the first)."""
+    now = time.perf_counter()
+    wall, _LAST_EMIT[0] = now - _LAST_EMIT[0], now
+    print(json.dumps({"phase": phase, "wall_s": wall, **fields}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -1176,10 +1188,13 @@ def serve_cuda_equals_cpu(dev) -> dict:
 
 # ---- alias tables, node2vec and probes ------------------------------------
 # served queries of serve_tables, compared with solo runs
-SERVE_TABLE_QUERIES = 128
-SERVE_TABLE_SOLO = 32
+SERVE_TABLE_QUERIES = 64
+SERVE_TABLE_SOLO = 16
 # node2vec phases: (p, q) of the config walks
 N2V_PQ = (0.5, 2.0)
+# tables_cuda_equals_cpu's served queries, in six waves
+TABLES_EQ_QUERIES = 30
+TABLES_EQ_WAVE = 5
 
 
 def count_syncs(fn):
@@ -1510,7 +1525,8 @@ def tables_cuda_equals_cpu(dev) -> dict:
                           node_capacity=512)
     sched = SchedulerConfig(path="grouped")
     wcfg = WalkConfig(num_walks=1024, max_length=16)
-    queries = table_traffic(np.random.default_rng(6), 512, np.arange(8), 48)
+    queries = table_traffic(np.random.default_rng(6), 512, np.arange(8),
+                            TABLES_EQ_QUERIES)
     t0 = time.perf_counter()
     out = {}
     for weight in ("uniform", "linear", "exponential"):
@@ -1533,7 +1549,8 @@ def tables_cuda_equals_cpu(dev) -> dict:
                 registry=MetricsRegistry(), device=d)
             for b in stream[:3]:
                 svc.ingest(*b)
-            served, _, _ = drive_serve(svc, queries, stream[3], wave=8)
+            served, _, _ = drive_serve(svc, queries, stream[3],
+                                       wave=TABLES_EQ_WAVE)
             got[str(d)] = (eng.state.tables, walks, n2v, served)
         (t_c, w_c, n_c, s_c), (t_h, w_h, n_h, s_h) = got[str(dev)], \
             got["cpu"]
@@ -1682,9 +1699,10 @@ def profile_sharded_batch(engine, batch, wcfg) -> dict:
     walks(states)
     torch.cuda.synchronize()
     busy, traced, kernels = {}, {}, {}
+    # the device alone: the host ops of ~160,000 walk kernels make the
+    # trace slow to read back (profile_lane_batch's host_ops=False)
     for name, fn in (("ingest", ingest), ("walks", lambda: walks(states))):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1886,7 +1904,7 @@ def sharded_path(args, cfg, batches, dev) -> dict:
 
 def sharded_small(dev) -> dict:
     """A small window (512 nodes, 2^15 edges) on the card and on the CPU:
-    D in {1, 2, 8} under range, hash and skew placement, and one
+    D = 1, and D in {2, 8} under range, hash and skew placement, and one
     under-provisioned 4-shard run that drops; walks, statistics and
     per-shard drop counters equal bit for bit, and equal to the
     single-device replay where nothing drops. Then a live reshard
@@ -1940,8 +1958,10 @@ def sharded_small(dev) -> dict:
         return pl.SkewPlacement.from_loads(p, loads, k=8) \
             if kind == "skew" else p
 
-    cases = [(D, kind, roomy) for D in (1, 2, 8)
-             for kind in ("range", "hash", "skew")] + [(4, "range", tight)]
+    # one shard owns every node whatever the placement: D = 1 once
+    cases = [(1, "range", roomy)] + [(D, kind, roomy) for D in (2, 8)
+                                     for kind in ("range", "hash", "skew")] \
+        + [(4, "range", tight)]
     runs = []
     for D, kind, shard in cases:
         out = {}
@@ -2017,10 +2037,12 @@ def sharded_small(dev) -> dict:
 
 
 # ---- sharded serving and the window checkpoints --------------------------
-# queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: eight waves, the
-# next batch ingested from the fifth to the seventh
-SERVE_SHARDED_QUERIES = 256
-SERVE_SHARDED_WAVE = 32
+# queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: six waves, the
+# next batch ingested from the fourth to the sixth
+SERVE_SHARDED_QUERIES = 96
+SERVE_SHARDED_WAVE = 16
+# serve_sharded_small's 16 queries in waves of 3: six waves, as above
+SERVE_SHARDED_SMALL_WAVE = 3
 # window_checkpoint's reduced stream: nodes, edges per batch, batches
 CKPT_NODES, CKPT_BATCH, CKPT_BATCHES = 1 << 20, 1 << 20, 6
 CKPT_EDGE_CAPACITY = 1 << 22
@@ -2209,7 +2231,8 @@ def serve_sharded_small(dev) -> dict:
                           num_shards=D, placement=placement)
         for b in stream[:3]:
             svc.ingest(*b)
-        results, _, states = drive_serve(svc, queries, stream[3], wave=2)
+        results, _, states = drive_serve(svc, queries, stream[3],
+                                         wave=SERVE_SHARDED_SMALL_WAVE)
         return svc, results, states
 
     # single-device solo runs at each ticket's version
@@ -2221,8 +2244,10 @@ def serve_sharded_small(dev) -> dict:
         r.query)) for t, r in coalesced.items()}
     del solo, states
 
-    cases = [(D, kind, roomy) for D in (1, 2, 8)
-             for kind in ("range", "hash", "skew")] + [(4, "range", tight)]
+    # one shard owns every node whatever the placement: D = 1 once
+    cases = [(1, "range", roomy)] + [(D, kind, roomy) for D in (2, 8)
+                                     for kind in ("range", "hash", "skew")] \
+        + [(4, "range", tight)]
     runs = []
     for D, kind, shard in cases:
         (c_svc, c_res, _), (p_svc, p_res, _) = (
@@ -2752,6 +2777,7 @@ BF16_PEAK_FLOPS = 989e12
 # lm_cuda_equals_cpu: both models at full width, 2 layers, float32, TF32
 # off, the same parameters on the card and the CPU. Tolerances:
 LM_EQ_LAYERS = 2
+LM_EQ_STEPS = 1                  # train steps checked
 LM_EQ_LOSS_RTOL = 1e-5           # loss and global gradient norm
 LM_EQ_LEAF_TOL = 1e-4            # gradients, moments, params: of leaf max
 LM_EQ_LOGITS_TOL = 1e-4          # decode logits: of the largest |logit|
@@ -2861,9 +2887,9 @@ def lm_train_full(args, cfg, batches, dev) -> dict:
                launches=launches, peak_mem_gib=peak,
                train_step_profile=step_profile,
                phase_seconds=time.perf_counter() - t_phase)
-    del engine, model, params, opt, step, batch
+    del model, params, opt, step, batch
     torch.cuda.empty_cache()
-    return out, last_walks
+    return out, last_walks, engine
 
 
 def lm_serve_full(walks, dev) -> dict:
@@ -2960,38 +2986,129 @@ def _leaf_gap(a, b) -> float:
     return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _lm_grads(model, params, batch):
+def _lm_grads(model, params, batch, num_groups=1):
     """The loss's gradient by name at ``params``."""
     import torch
     from repro_torch.models import model as M
     M.bind_params(model, params)
     named = dict(model.named_parameters())
     return dict(zip(params, torch.autograd.grad(
-        M.loss_fn(model, batch), [named[n] for n in params])))
+        M.loss_fn(model, batch, num_groups=num_groups),
+        [named[n] for n in params])))
+
+
+def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2):
+    """``n_steps`` ``make_train_step`` steps on the card and on the CPU,
+    each started from the CPU's state. Returns (gaps, unresolved elements,
+    step bound): loss and grad norm relative; gradients, moments and
+    params of each leaf's largest magnitude, except params whose AdamW
+    direction is unresolved (``LM_EQ_UNRESOLVED``), read against the step
+    bound 2·lr."""
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             lr_at, tree_map)
+    from repro_torch.train.train_loop import make_train_step
+    b_card = {k: v.to(dev) for k, v in batch.items()}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    steps = {"card": make_train_step(card, opt_cfg, num_groups),
+             "cpu": make_train_step(host, opt_cfg, num_groups)}
+    p, o = p_host, init_opt_state(p_host, opt_cfg)
+    gaps = dict(loss=0.0, grad_norm=0.0, grads=0.0, mu=0.0, nu=0.0,
+                params=0.0, unresolved_max_abs=0.0)
+    unresolved, bound = 0, 0.0
+    for t in range(n_steps):
+        pc, oc = tree_map(lambda x: x.to(dev), (p, o))
+        gc = _lm_grads(card, pc, b_card, num_groups)
+        gh = _lm_grads(host, p, batch, num_groups)
+        pc, oc, mc = steps["card"](pc, oc, b_card)
+        ph, oh, mh = steps["cpu"](p, o, batch)
+        for k in ("loss", "grad_norm"):
+            gaps[k] = max(gaps[k], abs(float(mc[k]) - float(mh[k]))
+                          / abs(float(mh[k])))
+        step_bound = 2 * float(lr_at(opt_cfg, t + 1))
+        bound = max(bound, step_bound)
+        for n, ref in ph.items():
+            gaps["grads"] = max(gaps["grads"], _leaf_gap(gc[n], gh[n]))
+            gaps["mu"] = max(gaps["mu"], _leaf_gap(oc.mu[n], oh.mu[n]))
+            gaps["nu"] = max(gaps["nu"], _leaf_gap(oc.nu[n], oh.nu[n]))
+            unres = gh[n].abs() <= LM_EQ_UNRESOLVED * gh[n].abs().max()
+            diff = (pc[n].cpu() - ref).abs()
+            if (~unres).any():
+                gaps["params"] = max(gaps["params"], float(
+                    diff[~unres].max() / ref.abs().max()))
+            if unres.any():
+                gaps["unresolved_max_abs"] = max(
+                    gaps["unresolved_max_abs"],
+                    float(diff[unres].max()) / step_bound)
+            unresolved += int(unres.sum())
+        p, o = ph, oh
+    return gaps, unresolved, bound
+
+
+def _train_gaps_hold(gaps) -> bool:
+    return (gaps["loss"] <= LM_EQ_LOSS_RTOL
+            and gaps["grad_norm"] <= LM_EQ_LOSS_RTOL
+            and max(gaps[k] for k in ("grads", "mu", "nu", "params"))
+            <= LM_EQ_LEAF_TOL
+            and gaps["unresolved_max_abs"] <= 1.0)
+
+
+def _decode_card_cpu(card, host, p_card, p_host, tokens, dev):
+    """From the given parameters on both sides: 8 decode steps of
+    ``tokens`` [2, ≥9], the card's prefill of the same 8, then 4 greedy
+    tokens. Returns (logits of the largest, prefill vs decode max abs,
+    prefill vs decode within ``LM_EQ_CONSISTENCY``, greedy equal)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import make_serve_step
+    dec = {}
+    for name, model, params, d in (("card", card, p_card, dev),
+                                   ("cpu", host, p_host, "cpu")):
+        M.bind_params(model, params)
+        t = tokens.to(d)
+        st = M.init_decode_state(model, 2, 16)
+        lg = []
+        with torch.no_grad():
+            for i in range(8):
+                x, st = M.decode_step(model, t[:, i:i + 1], st)
+                lg.append(x[:, 0])
+            pre, _, _ = M.forward(model, {"tokens": t[:, :8]})
+            pre = M.logits_from_hidden(model, pre)
+        serve = make_serve_step(model)
+        tok, gen = t[:, 8:9], []
+        for _ in range(4):
+            tok, st = serve(params, tok, st)
+            gen.append(tok)
+        dec[name] = dict(logits=torch.stack(lg, 1).cpu(), prefill=pre.cpu(),
+                         greedy=torch.cat(gen, 1).cpu())
+    lc, lh = dec["card"]["logits"], dec["cpu"]["logits"]
+    logit_gap = float((lc[:, :4] - lh[:, :4]).abs().max() / lh.abs().max())
+    consist = float((dec["card"]["prefill"] - lc).abs().max())
+    consist_ok = torch.allclose(lc, dec["card"]["prefill"],
+                                rtol=LM_EQ_CONSISTENCY,
+                                atol=LM_EQ_CONSISTENCY)
+    greedy_equal = torch.equal(dec["card"]["greedy"], dec["cpu"]["greedy"])
+    return logit_gap, consist, consist_ok, greedy_equal
 
 
 def lm_cuda_equals_cpu(dev) -> dict:
     """olmo-1b and qwen2-0.5b at full width, 2 layers, float32, TF32 off,
-    the same parameters on the card and the CPU. Each of 2 train steps
-    starts both from the CPU's state: loss and gradient norm within
-    ``LM_EQ_LOSS_RTOL``; gradients, moments and params within
+    the same parameters on the card and the CPU. ``LM_EQ_STEPS`` train
+    steps, each started on both from the CPU's state: loss and gradient
+    norm within ``LM_EQ_LOSS_RTOL``; gradients, moments and params within
     ``LM_EQ_LEAF_TOL`` of each leaf's largest magnitude, except params
     whose AdamW direction is unresolved (``LM_EQ_UNRESOLVED``), held to
     the step bound 2·lr. Then, from the initial parameters: 4 decode
     steps' logits within ``LM_EQ_LOGITS_TOL`` of the largest, prefill vs
     decode on the card within ``LM_EQ_CONSISTENCY``, 4 greedy tokens
     equal. (Left free, the two runs part at the unresolved elements,
-    whose ±lr steps change the next gradient: the second step is read
-    from a shared state.)"""
+    whose ±lr steps change the next gradient: a later step is read from
+    a shared state.)"""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import random as prng
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
-                                             lr_at, tree_map)
-    from repro_torch.train.train_loop import make_serve_step, make_train_step
     t_phase = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3011,83 +3128,13 @@ def lm_cuda_equals_cpu(dev) -> dict:
             labs = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
             batch = {k: torch.from_numpy(v) for k, v in
                      (("tokens", toks), ("labels", labs))}
-            b_card = {k: v.to(dev) for k, v in batch.items()}
-            opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-            steps = {"card": make_train_step(card, opt_cfg),
-                     "cpu": make_train_step(host, opt_cfg)}
-            p, o = p_host, init_opt_state(p_host, opt_cfg)
-            gaps = dict(loss=0.0, grad_norm=0.0, grads=0.0, mu=0.0, nu=0.0,
-                        params=0.0, unresolved_max_abs=0.0)
-            unresolved, bound = 0, 0.0
-            for t in range(2):
-                pc, oc = tree_map(lambda x: x.to(dev), (p, o))
-                gc = _lm_grads(card, pc, b_card)
-                gh = _lm_grads(host, p, batch)
-                pc, oc, mc = steps["card"](pc, oc, b_card)
-                ph, oh, mh = steps["cpu"](p, o, batch)
-                for k in ("loss", "grad_norm"):
-                    gaps[k] = max(gaps[k], abs(float(mc[k]) - float(mh[k]))
-                                  / abs(float(mh[k])))
-                step_bound = 2 * float(lr_at(opt_cfg, t + 1))
-                bound = max(bound, step_bound)
-                for n, ref in ph.items():
-                    gaps["grads"] = max(gaps["grads"],
-                                        _leaf_gap(gc[n], gh[n]))
-                    gaps["mu"] = max(gaps["mu"], _leaf_gap(oc.mu[n],
-                                                           oh.mu[n]))
-                    gaps["nu"] = max(gaps["nu"], _leaf_gap(oc.nu[n],
-                                                           oh.nu[n]))
-                    unres = gh[n].abs() <= LM_EQ_UNRESOLVED \
-                        * gh[n].abs().max()
-                    diff = (pc[n].cpu() - ref).abs()
-                    if (~unres).any():
-                        gaps["params"] = max(gaps["params"], float(
-                            diff[~unres].max() / ref.abs().max()))
-                    if unres.any():
-                        gaps["unresolved_max_abs"] = max(
-                            gaps["unresolved_max_abs"],
-                            float(diff[unres].max()) / step_bound)
-                    unresolved += int(unres.sum())
-                p, o = ph, oh
-            require(gaps["loss"] <= LM_EQ_LOSS_RTOL
-                    and gaps["grad_norm"] <= LM_EQ_LOSS_RTOL
-                    and max(gaps[k] for k in ("grads", "mu", "nu",
-                                              "params")) <= LM_EQ_LEAF_TOL
-                    and gaps["unresolved_max_abs"] <= 1.0,
+            gaps, unresolved, bound = _train_steps(card, host, p_host,
+                                                   batch, dev,
+                                                   n_steps=LM_EQ_STEPS)
+            require(_train_gaps_hold(gaps),
                     f"lm_cuda_equals_cpu {arch}: {gaps}")
-            del pc, oc, gc, gh
-
-            # decode from the initial parameters: 4 steps, then greedy
-            dec = {}
-            for name, model, params, d in (("card", card, p_card, dev),
-                                           ("cpu", host, p_host, "cpu")):
-                M.bind_params(model, params)
-                t = batch["tokens"].to(d)
-                st = M.init_decode_state(model, 2, 16)
-                lg = []
-                with torch.no_grad():
-                    for i in range(8):
-                        x, st = M.decode_step(model, t[:, i:i + 1], st)
-                        lg.append(x[:, 0])
-                    pre, _, _ = M.forward(model, {"tokens": t[:, :8]})
-                    pre = M.logits_from_hidden(model, pre)
-                serve = make_serve_step(model)
-                tok, gen = t[:, 8:9], []
-                for _ in range(4):
-                    tok, st = serve(params, tok, st)
-                    gen.append(tok)
-                dec[name] = dict(logits=torch.stack(lg, 1).cpu(),
-                                 prefill=pre.cpu(),
-                                 greedy=torch.cat(gen, 1).cpu())
-            lc, lh = dec["card"]["logits"], dec["cpu"]["logits"]
-            logit_gap = float((lc[:, :4] - lh[:, :4]).abs().max()
-                              / lh.abs().max())
-            consist = float((dec["card"]["prefill"] - lc).abs().max())
-            consist_ok = torch.allclose(lc, dec["card"]["prefill"],
-                                        rtol=LM_EQ_CONSISTENCY,
-                                        atol=LM_EQ_CONSISTENCY)
-            greedy_equal = torch.equal(dec["card"]["greedy"],
-                                       dec["cpu"]["greedy"])
+            logit_gap, consist, consist_ok, greedy_equal = _decode_card_cpu(
+                card, host, p_card, p_host, batch["tokens"], dev)
             require(logit_gap <= LM_EQ_LOGITS_TOL and consist_ok
                     and greedy_equal,
                     f"lm_cuda_equals_cpu {arch}: logits {logit_gap}, "
@@ -3095,14 +3142,14 @@ def lm_cuda_equals_cpu(dev) -> dict:
             out[arch] = dict(
                 layers=LM_EQ_LAYERS, params=sum(
                     v.numel() for v in p_host.values()),
-                steps=2, of_leaf_max={k: gaps[k] for k in (
+                steps=LM_EQ_STEPS, of_leaf_max={k: gaps[k] for k in (
                     "grads", "mu", "nu", "params")},
                 loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
                 unresolved_elements=unresolved,
                 unresolved_max_of_step_bound=gaps["unresolved_max_abs"],
                 step_bound=bound, decode_logits_of_max=logit_gap,
                 prefill_vs_decode_max_abs=consist, greedy_equal=True)
-            del card, host, p_card, p_host, p, o, dec
+            del card, host, p_card, p_host
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -3111,6 +3158,366 @@ def lm_cuda_equals_cpu(dev) -> dict:
                              logits_tol=LM_EQ_LOGITS_TOL,
                              consistency=LM_EQ_CONSISTENCY,
                              unresolved=LM_EQ_UNRESOLVED)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- the MoE family ------------------------------------------------------
+
+# lm_moe_serve_full: each config at full width and cut depth (deepseek's
+# dense layer 0 and one MoE layer with MLA; arctic's one MoE layer with
+# its dense residual), bf16, serving
+LM_MOE_ARCHS = (("deepseek-v2-236b", 2), ("arctic-480b", 1))
+LM_MOE = dict(prompts=16, prompt_len=512, max_seq=1024, decode_batch=64,
+              fill=16, new_tokens=32)
+# lm_moe_cuda_equals_cpu: both configs ``reduced`` at a width at which
+# the CPU side takes seconds; a token whose CPU gap between its k-th and
+# (k+1)-th routing probability is below LM_MOE_NEAR_TIE may route apart
+LM_MOE_EQ = dict(layers=2, d_model=1024, vocab=8192, experts=64, batch=4,
+                 seq=128, groups=(1, 4))
+LM_MOE_NEAR_TIE = 1e-5
+# init's peak may exceed the parameters plus one slab's draw by the
+# caching allocator's rounding of ~30 leaves and their temporaries
+INIT_SLACK = 16 << 20
+
+
+def _moe_hooks(model, record):
+    """A forward pre-hook on every MoE layer of ``model`` calling
+    ``record(layer, routing, logits)`` with the routing it recomputes on
+    the layer's input. Returns the handles."""
+    from repro_torch.models.moe import MoE
+
+    def hook(mod, args):
+        x = args[0]
+        g = args[1] if len(args) > 1 else 1
+        xg, r, _ = mod.route(x, g)
+        record(mod, r, xg @ mod.router.to(x.dtype))
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, MoE)]
+
+
+def _drop_share(model, run):
+    """(share of the MoE slots dropped at the capacity over ``run()``,
+    its result): an untimed pass whose counts stay on the card until its
+    end."""
+    import torch
+    counts = []
+    hooks = _moe_hooks(model, lambda mod, r, la: counts.append(
+        (torch.logical_not(r.keep).sum(), r.keep.numel())))
+    try:
+        result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    dropped = int(torch.stack([c for c, _ in counts]).sum())
+    return dropped / sum(n for _, n in counts), result
+
+
+def lm_moe_serve_full(engine, args, dev) -> dict:
+    """deepseek-v2-236b (2 layers: the dense layer 0 and one MoE layer of
+    160 routed and 2 shared experts, MLA) and arctic-480b (1 layer: GQA,
+    128 experts top-2, the dense residual) at full width in bf16, each
+    drawn straight into bf16 slab by slab (``init_params(dtype=)``), on
+    prompts of 2^14 × 80 walks sampled from the main path's final window
+    (fused path, one batch a model): a prefill of 16 × 512 tokens, a
+    cache of 1,024 for 64 sequences filled by 16 ``decode_step``s, then
+    32 greedy steps under ``set_sync_debug_mode("error")``, one traced.
+    Reads init seconds and peak memory (required within the bf16
+    parameter bytes plus one slab's draw), prefill ms, decode ms a step
+    against its bound (the bytes a step reads: every weight but the
+    unused embedding rows, and the caches), the shares of dropped slots
+    at prefill and at decode, the aux loss and peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import _capacity
+    from repro_torch.train.train_loop import (make_prefill_step,
+                                              make_serve_step)
+    t_phase = time.perf_counter()
+    P, S = LM_MOE["prompts"], LM_MOE["prompt_len"]
+    Bd, fill, n_new = (LM_MOE["decode_batch"], LM_MOE["fill"],
+                       LM_MOE["new_tokens"])
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    # one slab's draw: what init may hold beyond the parameters, read as
+    # a two-slab leaf's peak less the leaf itself
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaf = TL.truncated_normal(prng.PRNGKey(0), (2 * TL.INIT_SLAB,), 0.01,
+                               dev, torch.bfloat16)
+    slab_bytes = torch.cuda.max_memory_allocated() - base \
+        - leaf.numel() * leaf.element_size()
+    del leaf
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    out = dict(slab_elements=TL.INIT_SLAB, slab_draw_bytes=slab_bytes)
+    runtime.reset_launches()
+    for i, (arch, layers) in enumerate(LM_MOE_ARCHS):
+        t_model = time.perf_counter()
+        walks = engine.sample_walks(wcfg)
+        nodes = walks.nodes.cpu().numpy()
+        lengths = walks.lengths.cpu().numpy()
+        del walks
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        dtype = M.compute_dtype(cfg)
+        toks, _ = walks_to_lm_batch(nodes, lengths, S, P, cfg.vocab_size,
+                                    seed=200 + i)
+        prompts = torch.from_numpy(toks).to(dev)
+        toks, _ = walks_to_lm_batch(nodes, lengths, fill, Bd,
+                                    cfg.vocab_size, seed=300 + i)
+        dprompts = torch.from_numpy(toks).to(dev)
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, prng.PRNGKey(10 + i), dev, dtype=dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        params = M.params_of(model)
+        n_params = sum(p.numel() for p in params.values())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        require(init_peak <= param_bytes + slab_bytes + INIT_SLACK,
+                f"lm_moe_serve_full {arch}: init peak {init_peak} B over "
+                f"{param_bytes} B of parameters + {slab_bytes} B of a slab")
+
+        prefill = make_prefill_step(model)
+        prefill(params, {"tokens": prompts[:, :8]})          # warm-up
+        start, end = events()
+        torch.cuda.synchronize()
+        start.record()
+        pre_logits = prefill(params, {"tokens": prompts})
+        end.record()
+        end.synchronize()
+        prefill_ms = start.elapsed_time(end)
+        with torch.no_grad():
+            prefill_drop, (_, _, aux) = _drop_share(
+                model, lambda: M.forward(model, {"tokens": prompts}))
+        aux = float(aux)
+
+        state = M.init_decode_state(model, Bd, LM_MOE["max_seq"])
+
+        def fill_cache(state=state):
+            with torch.no_grad():
+                for t in range(fill):
+                    lg, state = M.decode_step(model, dprompts[:, t:t + 1],
+                                              state)
+            return lg
+        decode_drop, logits = _drop_share(model, fill_cache)
+        serve = make_serve_step(model)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+        def decode(tok, state):
+            toks_out = []
+            for _ in range(n_new):
+                tok, state = serve(params, tok, state)
+                toks_out.append(tok)
+            return toks_out, tok, state
+
+        start, end = events()
+        start.record()
+        out_toks, tok, state = no_host_sync(decode)(tok, state)
+        end.record()
+        end.synchronize()
+        decode_ms = start.elapsed_time(end) / n_new
+        _, syncs, sites = count_syncs(lambda: serve(params, tok, state))
+        require(syncs == 0, f"lm_moe_serve_full {arch}: a decode step "
+                            f"synced {sites}")
+        prof = profile_call(lambda: serve(params, tok, state))
+        gen = torch.cat(out_toks, dim=1)
+        require(bool((gen >= 0).all() and (gen < cfg.vocab_size).all()),
+                f"lm_moe_serve_full {arch}: a token is out of the vocabulary")
+        require(bool(torch.isfinite(pre_logits.float()).all())
+                and bool(torch.isfinite(logits.float()).all())
+                and math.isfinite(aux) and aux > 0,
+                f"lm_moe_serve_full {arch}: non-finite logits or aux {aux}")
+        emb = model.embed.table
+        weight_bytes = param_bytes - emb.numel() * emb.element_size() \
+            + Bd * cfg.d_model * emb.element_size()
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in state.caches for t in c)
+        expert_bytes = sum(p.numel() * p.element_size()
+                           for n, p in params.items()
+                           if n.endswith(("moe.w_gate", "moe.w_up",
+                                          "moe.w_down")))
+        bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        m = cfg.moe
+        out[arch] = dict(
+            layers=layers, dtype=cfg.dtype, params=n_params,
+            params_analytic=M.count_params_analytic(cfg),
+            param_gib=param_bytes / 2**30, experts=m.num_experts,
+            top_k=m.top_k, init_seconds=init_s,
+            init_peak_gib=init_peak / 2**30,
+            init_over_params_gib=(init_peak - param_bytes) / 2**30,
+            init_allowance_gib=(param_bytes + slab_bytes + INIT_SLACK)
+            / 2**30,
+            prompts=P, prompt_len=S,
+            prefill_capacity=_capacity(P * S, m),
+            prefill_ms=prefill_ms,
+            prefill_tokens_per_s=P * S / (prefill_ms / 1e3),
+            prefill_dropped_share=prefill_drop, aux_loss=aux,
+            decode_batch=Bd, max_seq=LM_MOE["max_seq"], cache_fill=fill,
+            decode_capacity=_capacity(Bd, m),
+            decode_dropped_share=decode_drop, new_tokens=n_new,
+            decode_ms_per_step=decode_ms,
+            decode_tokens_per_s=Bd / (decode_ms / 1e3),
+            decode_bound_ms=bound_ms, decode_bound_by="bytes",
+            decode_weight_bytes=weight_bytes, decode_cache_bytes=cache_bytes,
+            expert_bytes=expert_bytes,
+            host_syncs_per_decode_step=syncs, decode_step_profile=prof,
+            final_pos=int(state.pos),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_over_window_gib=(torch.cuda.max_memory_allocated() - base)
+            / 2**30, window_gib=base / 2**30,
+            seconds=time.perf_counter() - t_model)
+        del model, params, state, prefill, serve, pre_logits, logits, tok
+        del out_toks, gen, prompts, dprompts
+        torch.cuda.empty_cache()
+    launches = dict(runtime.LAUNCHES)
+    require(launches["fused_hop"] == args.length * len(LM_MOE_ARCHS)
+            and launches["weight_prefix"] == 0
+            and launches["walk_step_tiled"] == 0,
+            f"lm_moe_serve_full: launches {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def lm_moe_cuda_equals_cpu(dev) -> dict:
+    """deepseek-v2-236b and arctic-480b ``reduced`` to 2 layers, d_model
+    1024, 64 experts (top-2), vocab 8192, in float32 with TF32 off, the
+    same parameters on the card and the CPU, a 4 × 128 batch. At
+    ``num_groups`` 1 and 4: every MoE layer's routing on the first
+    forward equal (top-k experts of every token but the near ties, whose
+    CPU gap between the k-th and (k+1)-th probability is below
+    ``LM_MOE_NEAR_TIE``, counted; ranks and keep of every group without
+    one), the aux loss within ``LM_EQ_LOSS_RTOL``, then 2 train steps
+    from a shared state at ``lm_cuda_equals_cpu``'s tolerances. Then 8
+    decode steps' logits and 4 greedy tokens as there (prefill vs decode
+    is read: a prefill slot dropped at the capacity parts them)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import routing_margin
+    t_phase = time.perf_counter()
+    e = LM_MOE_EQ
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for arch, _ in LM_MOE_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(
+                reduced(get_config(arch), layers=e["layers"],
+                        d_model=e["d_model"], vocab=e["vocab"],
+                        experts=e["experts"]), dtype="float32")
+            host = M.init_params(cfg, prng.PRNGKey(4), "cpu")
+            p_host = M.params_of(host)
+            p_card = {n: t.to(dev) for n, t in p_host.items()}
+            card = M.TransformerLM(cfg, None, dev)
+            M.bind_params(card, p_card)
+            rng = np.random.default_rng(6)
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (e["batch"], e["seq"])).astype(np.int32))
+                for k in ("tokens", "labels")}
+            per_groups = {}
+            for g in e["groups"]:
+                routes = {"card": [], "cpu": []}
+                aux = {}
+                for name, model, d in (("card", card, dev),
+                                       ("cpu", host, "cpu")):
+                    hooks = _moe_hooks(model, lambda mod, r, la, name=name:
+                                       routes[name].append((r, la.cpu())))
+                    try:
+                        with torch.no_grad():
+                            _, _, a = M.forward(model, {
+                                "tokens": batch["tokens"].to(d)},
+                                num_groups=g)
+                    finally:
+                        for h in hooks:
+                            h.remove()
+                    aux[name] = float(a)
+                near, differ, groups_with_near = 0, 0, 0
+                for (rc, _), (rh, la) in zip(routes["card"],
+                                              routes["cpu"]):
+                    tie = routing_margin(la, cfg.moe.top_k) \
+                        < LM_MOE_NEAR_TIE
+                    near += int(tie.sum())
+                    both = rc.keep.cpu() & rh.keep
+                    top_c = torch.where(both, rc.e_idx.cpu(), -1)
+                    top_h = torch.where(both, rh.e_idx, -1)
+                    differ += int((top_c != top_h).any(-1)[~tie].sum())
+                    for gi in range(tie.shape[0]):
+                        if bool(tie[gi].any()):
+                            groups_with_near += 1
+                            continue
+                        for f in ("e_idx", "r_idx", "keep"):
+                            differ += int((getattr(rc, f)[gi].cpu()
+                                           != getattr(rh, f)[gi]).sum())
+                aux_rel = abs(aux["card"] - aux["cpu"]) / abs(aux["cpu"])
+                require(differ == 0 and aux_rel <= LM_EQ_LOSS_RTOL,
+                        f"lm_moe_cuda_equals_cpu {arch} groups {g}: "
+                        f"{differ} routing entries differ, aux {aux}")
+                gaps, unresolved, bound = _train_steps(
+                    card, host, p_host, batch, dev, num_groups=g)
+                require(_train_gaps_hold(gaps),
+                        f"lm_moe_cuda_equals_cpu {arch} groups {g}: {gaps}")
+                per_groups[g] = dict(
+                    near_tie_tokens=near,
+                    groups_with_near_ties=groups_with_near,
+                    routing_entries_differ=0, aux=aux["cpu"],
+                    aux_rel=aux_rel,
+                    of_leaf_max={k: gaps[k] for k in (
+                        "grads", "mu", "nu", "params")},
+                    loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
+                    unresolved_elements=unresolved,
+                    unresolved_max_of_step_bound=gaps[
+                        "unresolved_max_abs"], step_bound=bound)
+            # prefill and decode differ where the prefill drops a slot at
+            # its capacity (a decode step of 2 tokens drops none): read,
+            # not required
+            logit_gap, consist, _, greedy_equal = _decode_card_cpu(
+                card, host, p_card, p_host, batch["tokens"][:2], dev)
+            require(logit_gap <= LM_EQ_LOGITS_TOL and greedy_equal,
+                    f"lm_moe_cuda_equals_cpu {arch}: logits {logit_gap}, "
+                    f"greedy {greedy_equal}")
+            out[arch] = dict(
+                config=dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                            vocab=cfg.vocab_size,
+                            experts=cfg.moe.num_experts,
+                            top_k=cfg.moe.top_k,
+                            attention=cfg.attention.kind),
+                params=sum(v.numel() for v in p_host.values()),
+                batch=[e["batch"], e["seq"]], steps=2,
+                by_num_groups={str(k): v for k, v in per_groups.items()},
+                decode_logits_of_max=logit_gap,
+                prefill_vs_decode_max_abs=consist, greedy_equal=True,
+                seconds=time.perf_counter() - t_arch)
+            del card, host, p_card, p_host
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["tolerances"] = dict(loss_rtol=LM_EQ_LOSS_RTOL,
+                             leaf_tol=LM_EQ_LEAF_TOL,
+                             logits_tol=LM_EQ_LOGITS_TOL,
+                             consistency=LM_EQ_CONSISTENCY,
+                             unresolved=LM_EQ_UNRESOLVED,
+                             near_tie=LM_MOE_NEAR_TIE)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3561,10 +3968,17 @@ def main(argv=None) -> int:
     emit("optimizer_cuda_equals_cpu", **optimizer_cuda_equals_cpu(dev))
 
     # ---- phase 11: the walk-native LM consumer ---------------------------
-    lm_train, lm_walks = lm_train_full(args, cfg, batches, dev)
+    lm_train, lm_walks, lm_engine = lm_train_full(args, cfg, batches, dev)
     emit("lm_train_full", **lm_train, cuts=cuts)
     emit("lm_serve_full", **lm_serve_full(lm_walks, dev))
     emit("lm_cuda_equals_cpu", **lm_cuda_equals_cpu(dev))
+
+    # ---- phase 12: the MoE family (MLA, routed experts) -----------------
+    lm_moe = lm_moe_serve_full(lm_engine, args, dev)
+    del lm_engine
+    torch.cuda.empty_cache()
+    emit("lm_moe_serve_full", **lm_moe)
+    emit("lm_moe_cuda_equals_cpu", **lm_moe_cuda_equals_cpu(dev))
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -3584,6 +3998,7 @@ def main(argv=None) -> int:
                  "fused_hop"],
              train_embeddings_launches=train["launches"]["fused_hop"],
              lm_train_launches=lm_train["launches"]["fused_hop"],
+             lm_moe_serve_launches=lm_moe["launches"]["fused_hop"],
              **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
@@ -3601,6 +4016,7 @@ def main(argv=None) -> int:
              serve_sharded_launches=serve_sh["launches"]["weight_prefix"],
              train_embeddings_launches=train["launches"]["weight_prefix"],
              lm_train_launches=lm_train["launches"]["weight_prefix"],
+             lm_moe_serve_launches=lm_moe["launches"]["weight_prefix"],
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]
                  for r in ckpt["runs"]],

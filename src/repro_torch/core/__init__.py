@@ -22,10 +22,13 @@ from repro_torch.core.edge_store import (
     make_batch,
     stack_batches,
     store_from_arrays,
+    store_nbytes,
 )
 from repro_torch.core.streaming import (
     StreamingEngine,
     StreamStats,
+    ingest_and_walk,
+    ingest_and_walk_donated,
     replay_scan,
     replay_scan_probed,
 )
@@ -55,7 +58,8 @@ __all__ = [
     "AliasTables", "TableSpec", "build_tables", "spec_from_sampler",
     "update_tables", "StaticWalker", "TeaStyleSampler",
     "temporal_validity", "EdgeBatch", "EdgeStore", "empty_store", "make_batch",
-    "stack_batches", "store_from_arrays", "StreamingEngine", "StreamStats",
+    "stack_batches", "store_from_arrays", "store_nbytes", "StreamingEngine",
+    "StreamStats", "ingest_and_walk", "ingest_and_walk_donated",
     "replay_scan", "replay_scan_probed", "TemporalIndex", "build_index",
     "build_index_donated", "LaneParams", "WalkBuffers", "WalkResult",
     "alloc_walk_buffers", "generate_walk_lanes", "generate_walks",

@@ -123,3 +123,10 @@ def store_from_arrays(src, dst, ts, edge_capacity: int, node_capacity: int,
         num_edges=_i32(n, device),
     )
 
+
+
+def store_nbytes(store: EdgeStore) -> int:
+    """Device bytes held by the store's ``src``, ``dst`` and ``ts`` (paper
+    Fig. 11 memory accounting); the count is metadata, read nowhere."""
+    return sum(a.numel() * a.element_size()
+               for a in (store.src, store.dst, store.ts))

@@ -99,18 +99,37 @@ class ReplayStats(NamedTuple):
 def ingest_and_walk(state: WindowState, batch: EdgeBatch, key,
                     node_capacity: int, wcfg: WalkConfig,
                     scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                    bias_scale: float = 1.0,
+                    walk_bufs: Optional[WalkBuffers] = None,
                     table: Optional[TableSpec] = None):
     """One batch: ingest + rebuild (+ alias tables with ``table``) +
-    walks. Returns (state, WalkResult)."""
-    state = ingest(state, batch, node_capacity, table=table)
+    walks. Returns (state, WalkResult). ``bias_scale`` scales the
+    temporal bias as ``ingest`` does; with ``walk_bufs`` the walks are
+    written into those buffers."""
+    state = ingest(state, batch, node_capacity, bias_scale, table=table)
     return state, generate_walks(state.index, key, wcfg, scfg, sched_cfg,
-                                 tables=state.tables)
+                                 buffers=walk_bufs, tables=state.tables)
+
+
+def ingest_and_walk_donated(state: WindowState, batch: EdgeBatch,
+                            walk_bufs: WalkBuffers, key, node_capacity: int,
+                            wcfg: WalkConfig, scfg: SamplerConfig,
+                            sched_cfg: SchedulerConfig,
+                            bias_scale: float = 1.0,
+                            table: Optional[TableSpec] = None):
+    """Steady-state ``ingest_and_walk`` (DESIGN.md §10): this batch's walks
+    are written into the previous round's ``walk_bufs``, which the caller
+    gives up; chain with ``WalkBuffers(res.nodes, res.times)``."""
+    return ingest_and_walk(state, batch, key, node_capacity, wcfg, scfg,
+                           sched_cfg, bias_scale, walk_bufs=walk_bufs,
+                           table=table)
 
 
 def _replay_scan_impl(state: WindowState, batches: EdgeBatch, key,
                       node_capacity: int, wcfg: WalkConfig,
                       scfg: SamplerConfig, sched_cfg: SchedulerConfig,
-                      table: Optional[TableSpec], with_probes: bool):
+                      bias_scale: float, table: Optional[TableSpec],
+                      with_probes: bool):
     rows = []
     walks = None
     pv = replay_probe_zeros(batches.src.device) if with_probes else None
@@ -120,7 +139,8 @@ def _replay_scan_impl(state: WindowState, batches: EdgeBatch, key,
                           batches.count[i])
         prev = state
         state, walks = ingest_and_walk(state, batch, sub, node_capacity,
-                                       wcfg, scfg, sched_cfg, table=table)
+                                       wcfg, scfg, sched_cfg, bias_scale,
+                                       table=table)
         rows.append((state.index.num_edges, state.t_now, state.ingested,
                      state.late_drops, state.overflow_drops,
                      walks.lengths.sum().to(torch.float32)
@@ -139,7 +159,7 @@ def _replay_scan_impl(state: WindowState, batches: EdgeBatch, key,
 
 def replay_scan(state: WindowState, batches: EdgeBatch, key,
                 node_capacity: int, wcfg: WalkConfig, scfg: SamplerConfig,
-                sched_cfg: SchedulerConfig,
+                sched_cfg: SchedulerConfig, bias_scale: float = 1.0,
                 table: Optional[TableSpec] = None):
     """Replay K stacked batches ([K, B_cap] arrays) on the device.
 
@@ -147,19 +167,22 @@ def replay_scan(state: WindowState, batches: EdgeBatch, key,
     still on the device; nothing here waits for it.
     """
     return _replay_scan_impl(state, batches, key, node_capacity, wcfg,
-                             scfg, sched_cfg, table, with_probes=False)
+                             scfg, sched_cfg, bias_scale, table,
+                             with_probes=False)
 
 
 def replay_scan_probed(state: WindowState, batches: EdgeBatch, key,
                        node_capacity: int, wcfg: WalkConfig,
                        scfg: SamplerConfig, sched_cfg: SchedulerConfig,
+                       bias_scale: float = 1.0,
                        table: Optional[TableSpec] = None):
     """``replay_scan`` plus a replay probe vector (DESIGN.md §16): returns
     ``(final_state, ReplayStats, final_walks, probes)`` with ``probes`` an
     int32[NUM_REPLAY_PROBES] device tensor accumulated over the batches.
     Walks and statistics are those of ``replay_scan``, bit for bit."""
     return _replay_scan_impl(state, batches, key, node_capacity, wcfg,
-                             scfg, sched_cfg, table, with_probes=True)
+                             scfg, sched_cfg, bias_scale, table,
+                             with_probes=True)
 
 
 class StreamingEngine:

@@ -290,24 +290,31 @@ def lm_opt_state_to_ref(state: OptState, cfg) -> OptState:
 
 
 def decode_state_from_ref(state, cfg, device=None):
-    """The port's ``DecodeState`` from the reference's: per-segment
-    ``KVCache``s stacked over periods (``k``/``v`` ``[n_periods, B,
-    S_max, Hkv, D]``, ``pos`` ``[n_periods]`` int32) become one cache per
-    layer in ``[B, Hkv, S_max, D]`` and one position (every layer's is
-    the same)."""
-    from repro_torch.models.attention import KVCache
+    """The port's ``DecodeState`` from the reference's: per-segment caches
+    stacked over periods become one cache per layer and one position
+    (every layer's is the same). ``KVCache`` ``k``/``v`` ``[n_periods, B,
+    S_max, Hkv, D]`` go to ``[B, Hkv, S_max, D]``; ``MLACache``
+    ``c_kv``/``k_rope`` ``[n_periods, B, S_max, ·]`` keep their layout."""
+    from repro_torch.models.attention import KVCache, MLACache
     from repro_torch.models.model import DecodeState
     from repro_torch.models.transformer import build_segments
     device = resolve_device(device)
+    mla = cfg.attention.kind == "mla"
     caches, positions = [], []
     for si, seg in enumerate(build_segments(cfg)):
         seg_state = _get(state, "caches")[si]
         for p in range(seg.n_periods):
             for j in range(len(seg.period)):
                 c = seg_state[f"pos{j}"]
-                k, v = (_torch_from_array(np.asarray(_get(c, f))[p], device)
-                        .permute(0, 2, 1, 3).contiguous() for f in "kv")
-                caches.append(KVCache(k=k, v=v))
+                if mla:
+                    caches.append(MLACache(*(
+                        _torch_from_array(np.asarray(_get(c, f))[p], device)
+                        for f in MLACache._fields)))
+                else:
+                    k, v = (_torch_from_array(np.asarray(_get(c, f))[p],
+                                              device)
+                            .permute(0, 2, 1, 3).contiguous() for f in "kv")
+                    caches.append(KVCache(k=k, v=v))
                 positions.append(int(np.asarray(_get(c, "pos"))[p]))
     if len(set(positions)) != 1:
         raise ValueError(f"layers at different positions: {positions}")

@@ -1,5 +1,5 @@
-"""Attention: GQA (optional QKV bias, RoPE / M-RoPE) in two regimes,
-PyTorch port of repro/models/attention.py:
+"""Attention: GQA (optional QKV bias, RoPE / M-RoPE) and MLA
+(DeepSeek-V2) in two regimes, PyTorch port of repro/models/attention.py:
 
 * ``train/prefill`` — memory-efficient chunked attention (a flash-style
   running softmax over KV blocks, looped over Q blocks), in plain torch
@@ -16,7 +16,13 @@ kept ``[B, Hkv, S_max, D]`` so a decode step's products read it in
 place; ``repro_torch.interop`` converts from the reference's
 ``[B, S_max, Hkv, D]``.
 
-MLA (DeepSeek-V2) waits for the MoE slice (ROADMAP queue 1 item 5b).
+MLA (``MLA``) keeps a latent cache: ``c_kv [B, S_max, kv_lora]`` and
+``k_rope [B, S_max, qk_rope]``, the reference's layout. Its prefill
+materialises per-head K/V from the latent and runs the same chunked
+attention (q/k width ``qk_nope + qk_rope``, v width ``v_head_dim``,
+``Hkv = H``); its decode folds the key up-projection into the query and
+scores the latent cache directly (the absorb trick). ``make_attention``
+builds either kind from the config.
 """
 from __future__ import annotations
 
@@ -102,6 +108,11 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return outs[0] if nq == 1 else torch.cat(outs, dim=1)
 
 
+def _project(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """einsum("bs{d},{d}hk->bshk") as one matmul: ``w [d, H, K]``."""
+    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor     # [B, Hkv, S_max, D] (a ring when windowed)
     v: torch.Tensor
@@ -135,36 +146,29 @@ class Attention(nn.Module):
     ``bk``/``bv [Hkv, D]`` with ``att.qkv_bias``."""
 
     def __init__(self, key, att: AttentionConfig, d_model: int,
-                 device=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
         if att.kind != "gqa":
-            raise NotImplementedError(
-                f"attention kind {att.kind!r} (MLA) is not ported yet: "
-                "ROADMAP queue 1 item 5b")
+            raise ValueError(f"Attention is GQA, not {att.kind!r}")
         self.att = att
         H, Hkv, D = att.n_heads, att.n_kv_heads, att.head_dim
         ks = prng.split(key, 8) if key is not None else [None] * 8
         s = 1.0 / math.sqrt(d_model)
-        self.wq = parameter(ks[0], (d_model, H, D), s, device)
-        self.wk = parameter(ks[1], (d_model, Hkv, D), s, device)
-        self.wv = parameter(ks[2], (d_model, Hkv, D), s, device)
+        self.wq = parameter(ks[0], (d_model, H, D), s, device, dtype)
+        self.wk = parameter(ks[1], (d_model, Hkv, D), s, device, dtype)
+        self.wv = parameter(ks[2], (d_model, Hkv, D), s, device, dtype)
         self.wo = parameter(ks[3], (H, D, d_model), 1.0 / math.sqrt(H * D),
-                            device)
+                            device, dtype)
         if att.qkv_bias:
             self.bq = nn.Parameter(torch.zeros(H, D, device=device))
             self.bk = nn.Parameter(torch.zeros(Hkv, D, device=device))
             self.bv = nn.Parameter(torch.zeros(Hkv, D, device=device))
 
-    def _project(self, w, b, x):
-        """einsum("bsd,dhk->bshk") as one matmul, plus the bias."""
-        y = (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
-        return y if b is None else y + b.to(x.dtype)
-
     def _qkv(self, x, tables):
-        bias = self.att.qkv_bias
-        q = self._project(self.wq, self.bq if bias else None, x)
-        k = self._project(self.wk, self.bk if bias else None, x)
-        v = self._project(self.wv, self.bv if bias else None, x)
+        q, k, v = (_project(w, x) for w in (self.wq, self.wk, self.wv))
+        if self.att.qkv_bias:
+            q, k, v = (y + b.to(x.dtype) for y, b in
+                       ((q, self.bq), (k, self.bk), (v, self.bv)))
         if tables is not None:
             q, k = rotate(q, *tables), rotate(k, *tables)
         return q, k, v
@@ -206,3 +210,150 @@ def gqa_init_cache(att: AttentionConfig, batch: int, max_seq: int, dtype,
     shape = (batch, att.n_kv_heads, size, att.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # [B, S_max, kv_lora] compressed latent
+    k_rope: torch.Tensor   # [B, S_max, qk_rope]
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """MLA's latent norm (not ``Norm``): eps 1e-6, ``· scale`` in float32,
+    cast back."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention with the reference's leaves:
+    ``wq_a [d, q_lora]``, ``q_norm [q_lora]``, ``wq_b [q_lora, H, qk]``,
+    ``wkv_a [d, kv_lora + qk_rope]``, ``kv_norm [kv_lora]``, ``wk_b
+    [kv_lora, H, qk_nope]``, ``wv_b [kv_lora, H, v]``, ``wo [H, v, d]``.
+    ``q_norm`` and ``kv_norm`` apply in float32 and stay float32 under
+    ``cast_for_serving`` (``keep_float32``)."""
+
+    keep_float32 = ("q_norm", "kv_norm")
+
+    def __init__(self, key, att: AttentionConfig, d_model: int,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if att.kind != "mla":
+            raise ValueError(f"MLA is MLA, not {att.kind!r}")
+        self.att = att
+        H, qr, kr = att.n_heads, att.q_lora_rank, att.kv_lora_rank
+        nope, rope, vd = (att.qk_nope_head_dim, att.qk_rope_head_dim,
+                          att.v_head_dim)
+        ks = prng.split(key, 8) if key is not None else [None] * 8
+        s = 1.0 / math.sqrt(d_model)
+        self.wq_a = parameter(ks[0], (d_model, qr), s, device, dtype)
+        self.q_norm = nn.Parameter(torch.ones(qr, device=device))
+        self.wq_b = parameter(ks[1], (qr, H, nope + rope),
+                              1.0 / math.sqrt(qr), device, dtype)
+        self.wkv_a = parameter(ks[2], (d_model, kr + rope), s, device, dtype)
+        self.kv_norm = nn.Parameter(torch.ones(kr, device=device))
+        self.wk_b = parameter(ks[3], (kr, H, nope), 1.0 / math.sqrt(kr),
+                              device, dtype)
+        self.wv_b = parameter(ks[4], (kr, H, vd), 1.0 / math.sqrt(kr),
+                              device, dtype)
+        self.wo = parameter(ks[5], (H, vd, d_model), 1.0 / math.sqrt(H * vd),
+                            device, dtype)
+
+    def _query(self, x, tables):
+        """(q_nope ``[B, S, H, nope]``, rotated q_rope ``[B, S, H, rope]``)."""
+        nope = self.att.qk_nope_head_dim
+        q_lat = _rms(x @ self.wq_a.to(x.dtype), self.q_norm)
+        q = _project(self.wq_b, q_lat)
+        return q[..., :nope], rotate(q[..., nope:], *tables)
+
+    def _latent(self, x, tables):
+        """(normed c_kv ``[B, S, kv_lora]``, rotated k_rope ``[B, S, 1,
+        rope]``)."""
+        kr = self.att.kv_lora_rank
+        kv_a = x @ self.wkv_a.to(x.dtype)
+        c_kv = _rms(kv_a[..., :kr], self.kv_norm)
+        return c_kv, rotate(kv_a[..., None, kr:], *tables)
+
+    def _out(self, out):
+        """einsum("bshk,hkd->bsd")."""
+        return out.flatten(2) @ self.wo.to(out.dtype).flatten(0, 1)
+
+    def forward(self, x, tables, *, causal: bool = True,
+                window: int = 0) -> torch.Tensor:
+        """Train / prefill: per-head K/V materialised from the latent, then
+        the chunked attention. ``tables`` rotate ``qk_rope`` dims."""
+        att = self.att
+        q_nope, q_rope = self._query(x, tables)
+        c_kv, k_rope = self._latent(x, tables)
+        k_nope = _project(self.wk_b, c_kv)
+        v = _project(self.wv_b, c_kv)
+        k_rope = k_rope.expand(-1, -1, att.n_heads, -1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope], dim=-1)
+        return self._out(_chunked_attention(q, k, v, causal=causal,
+                                            window=window))
+
+    def decode(self, x, cache: MLACache, at: DecodeSlot,
+               tables) -> torch.Tensor:
+        """Latent-space decode (absorb trick): x ``[B, 1, d]``; the key
+        up-projection is folded into the query, so the scores read the
+        latent cache, written at ``at.slot`` in place; the attended
+        latent is up-projected by ``wv_b``."""
+        att = self.att
+        dtype = x.dtype
+        B = x.shape[0]
+        H = att.n_heads
+        q_nope, q_rope = self._query(x, tables)
+        # q_eff [B, H, kv_lora] = einsum("bshk,rhk->bshr", q_nope, wk_b)
+        q_eff = torch.einsum("bhk,rhk->bhr", q_nope[:, 0],
+                             self.wk_b.to(dtype))
+        c_new, k_rope_new = self._latent(x, tables)
+        cache.c_kv.index_copy_(1, at.slot, c_new)
+        cache.k_rope.index_copy_(1, at.slot, k_rope_new[:, :, 0])
+        scale = 1.0 / math.sqrt(att.qk_nope_head_dim + att.qk_rope_head_dim)
+        s = (q_eff @ cache.c_kv.transpose(1, 2)
+             + q_rope[:, 0] @ cache.k_rope.transpose(1, 2))     # [B, H, S]
+        s = s * scalar_like(scale, s)
+        s = torch.where(at.valid, s, NEG)
+        p = torch.softmax(s.float(), dim=-1).to(dtype)
+        o_lat = p @ cache.c_kv                                 # [B, H, r]
+        out = torch.einsum("bhr,rhk->bhk", o_lat, self.wv_b.to(dtype))
+        return self._out(out.view(B, 1, H, -1))
+
+
+def mla_init_cache(att: AttentionConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_seq, att.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_seq, att.qk_rope_head_dim),
+                           dtype=dtype, device=device))
+
+
+def make_attention(key, att: AttentionConfig, d_model: int, device=None,
+                   dtype=torch.float32) -> nn.Module:
+    """``Attention`` (``kind="gqa"``) or ``MLA`` (``kind="mla"``)."""
+    if att.kind == "gqa":
+        return Attention(key, att, d_model, device, dtype)
+    if att.kind == "mla":
+        return MLA(key, att, d_model, device, dtype)
+    raise ValueError(f"unknown attention kind {att.kind!r}")
+
+
+def init_cache(att: AttentionConfig, batch: int, max_seq: int, dtype,
+               device=None):
+    """The decode cache of one layer of ``att``'s kind."""
+    if att.kind == "mla":
+        return mla_init_cache(att, batch, max_seq, dtype, device)
+    return gqa_init_cache(att, batch, max_seq, dtype, device)
+
+
+def cache_len(cache) -> int:
+    """Slots of a layer's cache (``KVCache`` or ``MLACache``)."""
+    return cache.c_kv.shape[1] if isinstance(cache, MLACache) \
+        else cache.k.shape[2]

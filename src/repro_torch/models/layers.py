@@ -25,18 +25,39 @@ from repro_torch import random as prng
 from repro_torch.configs.base import AttentionConfig
 
 
-def truncated_normal(key, shape, scale, device) -> torch.Tensor:
-    """``scale · truncated_normal(key, −2, 2, shape)``, float32."""
-    return scale * prng.truncated_normal(key, -2.0, 2.0, shape, device)
+# a leaf larger than this many elements is drawn slab by slab: a draw's
+# int64 counters and threefry temporaries take ~50 bytes an element, so
+# one 1.3e9–4.5e9-element expert leaf drawn at once would not fit the card
+INIT_SLAB = 1 << 25
 
 
-def parameter(key, shape, scale, device) -> nn.Parameter:
-    """A float32 parameter drawn as the reference draws it, or left
-    uninitialised when ``key`` is None."""
+def truncated_normal(key, shape, scale, device, dtype=torch.float32,
+                     slab: int = INIT_SLAB) -> torch.Tensor:
+    """``(scale · truncated_normal(key, −2, 2, shape)).to(dtype)``: the
+    float32 draw, cast once. A leaf of more than ``slab`` elements is
+    drawn slab by slab (``random.truncated_normal``'s ``start``) into its
+    ``dtype`` storage, so the draw needs the leaf plus one slab's
+    temporaries and gives the same bits as one draw."""
+    n = math.prod(shape)
+    if n <= slab:
+        return (scale * prng.truncated_normal(key, -2.0, 2.0, shape,
+                                              device)).to(dtype)
+    out = torch.empty(n, dtype=dtype, device=device)
+    for s0 in range(0, n, slab):
+        m = min(slab, n - s0)
+        out[s0:s0 + m] = scale * prng.truncated_normal(
+            key, -2.0, 2.0, (m,), device, start=s0)
+    return out.view(tuple(shape))
+
+
+def parameter(key, shape, scale, device,
+              dtype=torch.float32) -> nn.Parameter:
+    """A parameter drawn as the reference draws it and stored in ``dtype``
+    (float32 masters by default), or left uninitialised when ``key`` is
+    None."""
     if key is None:
-        return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                        device=device))
-    return nn.Parameter(truncated_normal(key, shape, scale, device))
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    return nn.Parameter(truncated_normal(key, shape, scale, device, dtype))
 
 
 def scalar_like(value: float, x: torch.Tensor) -> torch.Tensor:
@@ -146,12 +167,13 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int):
 
 
 def positional_tables(att: AttentionConfig, positions: torch.Tensor):
-    """The rotation tables of ``att.rope == "rope"`` for ``positions``, or
-    None ("none" / "sinusoidal": added at the embedding, not in
-    attention; "mrope" waits for its positions, ROADMAP queue 1 item
-    5d)."""
+    """The rotation tables of ``att.rope == "rope"`` for ``positions``
+    (over ``qk_rope_head_dim`` for MLA, ``head_dim`` otherwise), or None
+    ("none" / "sinusoidal": added at the embedding, not in attention;
+    "mrope" waits for its positions, ROADMAP queue 1 item 5d)."""
     if att.rope == "rope":
-        return rope_tables(positions, att.head_dim, att.rope_theta)
+        dim = att.qk_rope_head_dim if att.kind == "mla" else att.head_dim
+        return rope_tables(positions, dim, att.rope_theta)
     return None
 
 
@@ -166,7 +188,7 @@ class MLP(nn.Module):
     jax's ``gelu`` is the tanh approximation."""
 
     def __init__(self, key, d_model: int, d_ff: int, activation: str,
-                 device=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
         if activation not in ("swiglu", "geglu", "gelu"):
             raise ValueError(activation)
@@ -175,11 +197,12 @@ class MLP(nn.Module):
         ks = prng.split(key, 3) if key is not None else [None] * 3
         s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
         if gated:
-            self.w_gate = parameter(ks[0], (d_model, d_ff), s_in, device)
+            self.w_gate = parameter(ks[0], (d_model, d_ff), s_in, device,
+                                    dtype)
         self.w_up = parameter(ks[1 if gated else 0], (d_model, d_ff), s_in,
-                              device)
+                              device, dtype)
         self.w_down = parameter(ks[2 if gated else 1], (d_ff, d_model),
-                                s_out, device)
+                                s_out, device, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
@@ -203,10 +226,11 @@ class Embedding(nn.Module):
     """A ``[vocab, d_model]`` table (``table``); 1/sqrt(d) keeps tied
     unembedding logits O(1) at init."""
 
-    def __init__(self, key, vocab: int, d_model: int, device=None):
+    def __init__(self, key, vocab: int, d_model: int, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.table = parameter(key, (vocab, d_model),
-                               1.0 / math.sqrt(d_model), device)
+                               1.0 / math.sqrt(d_model), device, dtype)
 
 
 def embed(emb: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,12 +1,21 @@
 """Top-level model API, PyTorch port of repro/models/model.py, for
-``family="dense"`` (the other families: ROADMAP queue 1 items 5b–5d).
+``family="dense"`` and ``"moe"`` (MoE FFNs, MLA or GQA attention; the
+other families: ROADMAP queue 1 items 5c–5d).
 
 * ``init_params(cfg, key, device)``      — a ``TransformerLM`` (float32
-  masters, drawn with the reference's threefry keys)
+  masters, drawn with the reference's threefry keys; ``dtype=`` stores
+  the drawn matrices in the serving dtype instead)
 * ``forward(model, batch)``              — pre-logits for train/prefill
+  and the MoE aux loss
 * ``loss_fn(model, batch)``              — sequence-chunked cross-entropy
-* ``init_decode_state(model, B, S)``     — KV caches and the position
+  plus the aux loss
+* ``init_decode_state(model, B, S)``     — KV or latent caches and the
+  position
 * ``decode_step(model, tokens, state)``  — one-token serve step
+
+``forward``, ``loss_fn`` and ``decode_step`` take the reference's
+``num_groups``: an MoE layer dispatches its tokens in ``gcd(tokens,
+num_groups)`` groups.
 
 Batch dict keys: ``tokens`` [B, S] (+ ``labels`` for train), integer
 tensors on the model's device. The model's parameters are float32 and
@@ -16,7 +25,7 @@ stores them in that dtype once, for a model that only serves.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -26,7 +35,7 @@ from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import LayerCache
 from repro_torch.models.layers import (Embedding, Norm, embed,
                                        positional_tables,
                                        sinusoidal_positions)
@@ -42,21 +51,29 @@ class TransformerLM(nn.Module):
     """``embed``, ``layers`` (``layers[si][period]["pos{j}"]``),
     ``final_norm`` and, untied, ``unembed``: the reference's parameter
     tree with each segment unstacked over its periods. On CUDA unless
-    ``device`` names another; ``key`` None leaves it uninitialised."""
+    ``device`` names another; ``key`` None leaves it uninitialised.
+    ``dtype`` (float32 by default) stores every drawn matrix in that
+    dtype, each the float32 draw cast once and a large one drawn slab by
+    slab, so a serving model never holds its float32 masters; norm
+    parameters stay float32."""
 
-    def __init__(self, cfg: ModelConfig, key=None, device=None):
+    def __init__(self, cfg: ModelConfig, key=None, device=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         tfm.check_supported(cfg)
         device = resolve_device(device)
+        dtype = dtype or torch.float32
         self.cfg = cfg
         ks = prng.split(key, 8) if key is not None else [None] * 8
         self.segments = tfm.build_segments(cfg)
-        self.embed = Embedding(ks[0], cfg.vocab_size, cfg.d_model, device)
+        self.embed = Embedding(ks[0], cfg.vocab_size, cfg.d_model, device,
+                               dtype)
         self.final_norm = Norm(cfg.norm, cfg.d_model, device)
-        self.layers = tfm.init_stack(ks[1], cfg, self.segments, device)
+        self.layers = tfm.init_stack(ks[1], cfg, self.segments, device,
+                                     dtype)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(ks[2], cfg.vocab_size, cfg.d_model,
-                                     device)
+                                     device, dtype)
 
     @property
     def device(self) -> torch.device:
@@ -67,11 +84,14 @@ class TransformerLM(nn.Module):
             else self.unembed.table
 
 
-def init_params(cfg: ModelConfig, key, device=None) -> TransformerLM:
+def init_params(cfg: ModelConfig, key, device=None,
+                dtype: Optional[torch.dtype] = None) -> TransformerLM:
     """The model with the reference's initial values (within the
     ``erfinv`` gap of ``random.truncated_normal``), on CUDA unless
-    ``device`` names another. ``key`` None leaves it uninitialised."""
-    return TransformerLM(cfg, key, device)
+    ``device`` names another. ``key`` None leaves it uninitialised.
+    ``dtype=compute_dtype(cfg)`` gives, bit for bit, ``cast_for_serving``
+    of the float32 model without ever holding it."""
+    return TransformerLM(cfg, key, device, dtype)
 
 
 def params_of(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -99,7 +119,9 @@ def bind_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
 def cast_for_serving(model: TransformerLM) -> TransformerLM:
     """Store every parameter that is only ever applied in ``cfg.dtype``
     (matrices, tables, QKV biases) in that dtype, in place; norm
-    parameters stay float32, as they apply in float32. The cast is the
+    parameters (``Norm``'s, and those a module lists in
+    ``keep_float32``, MLA's ``q_norm``/``kv_norm``) stay float32, as
+    they apply in float32. The cast is the
     one the forward makes, so the outputs keep their bits, and a decode
     step stops re-casting its weights (for qwen2-0.5b, the 136M-element
     tied table each step). For a model that serves: training keeps its
@@ -109,8 +131,10 @@ def cast_for_serving(model: TransformerLM) -> TransformerLM:
         for mod in model.modules():
             if isinstance(mod, Norm):
                 continue
-            for p in mod.parameters(recurse=False):
-                p.data = p.data.to(dtype)
+            keep = getattr(mod, "keep_float32", ())
+            for name, p in mod.named_parameters(recurse=False):
+                if name not in keep:
+                    p.data = p.data.to(dtype)
     model._bound_params = None
     return model
 
@@ -125,8 +149,9 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
         .expand(B, S)
 
 
-def forward(model: TransformerLM, batch):
-    """Full-sequence forward. Returns (pre-logits x, positions, aux)."""
+def forward(model: TransformerLM, batch, *, num_groups: int = 1):
+    """Full-sequence forward. Returns (pre-logits x, positions, aux): aux
+    is the MoE layers' load-balancing loss, float32 (0 without MoE)."""
     cfg = model.cfg
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
@@ -135,10 +160,11 @@ def forward(model: TransformerLM, batch):
     pos = _positions(B, S, x.device)
     if cfg.attention.rope == "sinusoidal":
         x = x + sinusoidal_positions(pos, cfg.d_model).to(dtype)
-    x = tfm.apply_stack(model.layers, cfg, x,
-                        positional_tables(cfg.attention, pos))
+    x, aux = tfm.apply_stack(model.layers, cfg, x,
+                             positional_tables(cfg.attention, pos),
+                             num_groups)
     x = model.final_norm(x)
-    return x, pos, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, pos, aux
 
 
 def logits_from_hidden(model: TransformerLM, x: torch.Tensor):
@@ -177,8 +203,8 @@ def cross_entropy_chunked(x, table, targets, *, chunk: int = SEQ_CHUNK):
     return total / (B * S)
 
 
-def loss_fn(model: TransformerLM, batch):
-    x, _, aux = forward(model, batch)
+def loss_fn(model: TransformerLM, batch, *, num_groups: int = 1):
+    x, _, aux = forward(model, batch, num_groups=num_groups)
     labels = batch["labels"]
     S_l = labels.shape[1]
     loss = cross_entropy_chunked(x[:, -S_l:, :], model.out_table(), labels)
@@ -191,7 +217,7 @@ def loss_fn(model: TransformerLM, batch):
 
 
 class DecodeState(NamedTuple):
-    caches: List[KVCache]   # one per layer, in layer order
+    caches: List[LayerCache]  # one per layer, in layer order
     pos: torch.Tensor       # int32, 0-d: tokens already written
 
 
@@ -205,7 +231,8 @@ def init_decode_state(model: TransformerLM, batch: int,
         pos=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def decode_step(model: TransformerLM, tokens, state: DecodeState):
+def decode_step(model: TransformerLM, tokens, state: DecodeState, *,
+                num_groups: int = 1):
     """tokens: [B, 1]. Returns (logits [B, 1, V], state): the caches are
     written and ``pos`` advanced in place, on the device, so the step
     reads nothing back to the host. Every layer sits at the same
@@ -219,7 +246,7 @@ def decode_step(model: TransformerLM, tokens, state: DecodeState):
         x = x + sinusoidal_positions(posf, cfg.d_model).to(dtype)
     tables = positional_tables(cfg.attention, posf)
     x = tfm.decode_stack(model.layers, cfg, x, state.caches, state.pos,
-                         tables)
+                         tables, num_groups)
     x = model.final_norm(x)
     state.pos.add_(1)
     return logits_from_hidden(model, x), state

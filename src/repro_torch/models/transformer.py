@@ -9,14 +9,16 @@ parameters over periods (``layers[si]["pos{j}"]``, leaves
 ``ModuleDict`` of ``Block``s (``layers[si][period]["pos{j}"]``), run in
 a Python loop. ``repro_torch.interop`` unstacks and restacks.
 
-The port builds ``kind="attn"`` layers with ``ffn`` dense or none.
-Mamba, mLSTM and sLSTM layers, MoE FFNs and cross-attention raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The port builds ``kind="attn"`` layers (GQA or MLA) with ``ffn``
+dense, moe or none; a stack's forward returns the MoE layers' aux loss
+summed in layer order. Mamba, mLSTM and sLSTM layers, cross-attention
+and M-RoPE raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,9 +26,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (Attention, DecodeSlot, KVCache,
-                                          decode_slot, gqa_init_cache)
+from repro_torch.models.attention import (DecodeSlot, KVCache, MLACache,
+                                          cache_len, decode_slot, init_cache,
+                                          make_attention)
 from repro_torch.models.layers import MLP, Norm
+from repro_torch.models.moe import MoE
+
+LayerCache = Union[KVCache, MLACache]
 
 
 class LayerSpec(NamedTuple):
@@ -78,7 +84,10 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not build yet, naming the ROADMAP item."""
+    """Refuse what the port does not build yet, naming the ROADMAP item:
+    enc-dec cross-attention, VLM inputs and M-RoPE (item 5d), and mamba,
+    mLSTM and sLSTM layers (item 5c). Attention layers of either kind
+    (GQA, MLA) with dense, MoE or no FFN are built."""
     if cfg.family == "enc_dec":
         raise NotImplementedError(
             "cross-attention (enc-dec) is not ported yet: ROADMAP queue 1 "
@@ -92,13 +101,9 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{spec.kind} layers are not ported yet: ROADMAP queue 1 "
                 "item 5c")
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                "MoE FFNs are not ported yet: ROADMAP queue 1 item 5b")
-    if cfg.attention.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {cfg.attention.kind!r} is not ported yet: "
-            "ROADMAP queue 1 item 5b")
+    if cfg.attention.kind not in ("gqa", "mla"):
+        raise ValueError(
+            f"unknown attention kind {cfg.attention.kind!r}")
     if cfg.attention.rope == "mrope":
         raise NotImplementedError(
             "M-RoPE positions are not ported yet: ROADMAP queue 1 item 5d")
@@ -110,34 +115,47 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """Pre-norm attention and dense FFN with residuals: ``norm1``,
-    ``attn``, and with ``ffn="dense"`` ``norm2`` and ``mlp`` (the kinds
-    ``check_supported`` admits)."""
+    """Pre-norm attention and FFN with residuals: ``norm1``, ``attn``
+    (``Attention`` or ``MLA`` by ``cfg.attention.kind``), and with
+    ``ffn="dense"`` ``norm2`` and ``mlp``, with ``ffn="moe"`` ``norm2``
+    and ``moe``. ``dtype`` stores the drawn matrices (norms stay
+    float32)."""
 
-    def __init__(self, key, cfg: ModelConfig, spec: LayerSpec, device=None):
+    def __init__(self, key, cfg: ModelConfig, spec: LayerSpec, device=None,
+                 dtype=torch.float32):
         super().__init__()
         ks = prng.split(key, 6) if key is not None else [None] * 6
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg.norm, cfg.d_model, device)
-        self.attn = Attention(ks[0], cfg.attention, cfg.d_model, device)
+        self.attn = make_attention(ks[0], cfg.attention, cfg.d_model, device,
+                                   dtype)
         if spec.ffn == "dense":
             self.norm2 = Norm(cfg.norm, cfg.d_model, device)
             self.mlp = MLP(ks[2], cfg.d_model, cfg.d_ff, cfg.activation,
-                           device)
+                           device, dtype)
+        elif spec.ffn == "moe":
+            self.norm2 = Norm(cfg.norm, cfg.d_model, device)
+            self.moe = MoE(ks[2], cfg, cfg.moe, device, dtype)
 
-    def _ffn(self, x):
+    def _ffn(self, x, num_groups: int):
+        """(x after the FFN, the layer's aux loss or None)."""
         if self.spec.ffn == "dense":
-            x = x + self.mlp(self.norm2(x))
-        return x
+            return x + self.mlp(self.norm2(x)), None
+        if self.spec.ffn == "moe":
+            y, aux = self.moe(self.norm2(x), num_groups)
+            return x + y, aux
+        return x, None
 
-    def forward(self, x, tables):
+    def forward(self, x, tables, num_groups: int = 1):
+        """Returns (x, aux loss float32 0-d, or None without an MoE)."""
         x = x + self.attn(self.norm1(x), tables, causal=True,
                           window=self.cfg.attention.window)
-        return self._ffn(x)
+        return self._ffn(x, num_groups)
 
-    def decode(self, x, cache: KVCache, at: DecodeSlot, tables):
+    def decode(self, x, cache: LayerCache, at: DecodeSlot, tables,
+               num_groups: int = 1):
         x = x + self.attn.decode(self.norm1(x), cache, at, tables)
-        return self._ffn(x)
+        return self._ffn(x, num_groups)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +164,7 @@ class Block(nn.Module):
 
 
 def init_stack(key, cfg: ModelConfig, segments: List[Segment],
-               device=None) -> nn.ModuleList:
+               device=None, dtype=torch.float32) -> nn.ModuleList:
     """``stack[si][period]["pos{j}"]``. Keys as the reference draws them:
     segment ``si`` folds ``si`` into ``key``, its periods take
     ``split(·, n_periods)``, and position ``j`` folds in ``j``; the
@@ -159,7 +177,7 @@ def init_stack(key, cfg: ModelConfig, segments: List[Segment],
         stacks.append(nn.ModuleList(
             nn.ModuleDict({
                 f"pos{j}": Block(None if k is None else prng.fold_in(k, j),
-                                 cfg, spec, device)
+                                 cfg, spec, device, dtype)
                 for j, spec in enumerate(seg.period)})
             for k in keys))
     return stacks
@@ -172,33 +190,40 @@ def blocks(stacks: nn.ModuleList) -> List[Block]:
 
 
 def init_stack_cache(cfg: ModelConfig, segments: List[Segment], batch: int,
-                     max_seq: int, dtype, device=None) -> List[KVCache]:
-    """One cache per layer, in layer order."""
-    return [gqa_init_cache(cfg.attention, batch, max_seq, dtype, device)
+                     max_seq: int, dtype, device=None) -> List[LayerCache]:
+    """One cache per layer, in layer order (``MLACache`` for MLA)."""
+    return [init_cache(cfg.attention, batch, max_seq, dtype, device)
             for seg in segments for _ in range(seg.n_periods)
             for _ in seg.period]
 
 
-def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables):
-    """Full-sequence forward through every block. With ``cfg.remat ==
-    "block"`` and autograd on, each period is recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant), the reference's
-    ``jax.checkpoint(..., nothing_saveable)`` around its scan body."""
+def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
+                num_groups: int = 1):
+    """Full-sequence forward through every block. Returns (x, aux): the
+    MoE layers' aux losses summed in float32 in layer order (0 without
+    one). With ``cfg.remat == "block"`` and autograd on, each period is
+    recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant), the reference's ``jax.checkpoint(...,
+    nothing_saveable)`` around its scan body, aux included."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in stacks:
         for period in seg:
-            def run(xc, period=period):
+            def run(xc, auxc, period=period):
                 for j in range(len(period)):
-                    xc = period[f"pos{j}"](xc, tables)
-                return xc
-            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
-    return x
+                    xc, a = period[f"pos{j}"](xc, tables, num_groups)
+                    if a is not None:
+                        auxc = auxc + a
+                return xc, auxc
+            x, aux = checkpoint(run, x, aux, use_reentrant=False) if remat \
+                else run(x, aux)
+    return x, aux
 
 
 def decode_stack(stacks: nn.ModuleList, cfg: ModelConfig, x,
-                 caches: List[KVCache], pos, tables):
+                 caches: List[LayerCache], pos, tables, num_groups: int = 1):
     """One decode step through every block at position ``pos``."""
-    at = decode_slot(pos, caches[0].k.shape[2], cfg.attention.window)
+    at = decode_slot(pos, cache_len(caches[0]), cfg.attention.window)
     for blk, cache in zip(blocks(stacks), caches):
-        x = blk.decode(x, cache, at, tables)
+        x = blk.decode(x, cache, at, tables, num_groups)
     return x

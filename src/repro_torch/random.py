@@ -148,15 +148,21 @@ def _to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: KeyLike, shape: Sequence[int],
             device: torch.device | str | None = None,
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0,
+            start: int = 0) -> torch.Tensor:
     """float32 U[minval, maxval) of ``shape`` (``jax.random.uniform``), on
     CUDA unless ``device`` names another: the unit floats, then
     ``max(minval, floats·(maxval − minval) + minval)`` with the bounds
     taken as float32. XLA fuses the product and the sum into one
     multiply-add, rounded once; here both are taken in float64, where
-    they are exact for bounds of like magnitude, and rounded once."""
+    they are exact for bounds of like magnitude, and rounded once.
+
+    ``start`` draws counters ``[start, start + prod(shape))`` of the
+    key's stream: in the partitionable layout element ``i`` of a draw
+    depends on counter ``i`` alone, so a draw of ``n`` elements is the
+    concatenation of its slabs, each drawn with its own ``start``."""
     k1, k2 = key_words(key)
-    bits = _bits(k1, k2, math.prod(shape), resolve_device(device))
+    bits = _bits(k1, k2, math.prod(shape), resolve_device(device), start)
     u = _to_unit_float(bits.reshape(tuple(shape)))
     if (minval, maxval) == (0.0, 1.0):
         return u
@@ -165,10 +171,11 @@ def uniform(key: KeyLike, shape: Sequence[int],
     return torch.clamp_min(u, float(lo))
 
 
-def _bits(k1, k2, n: int, device) -> torch.Tensor:
-    """jax's 32-bit ``random_bits`` of ``n`` values: int64 ``[..., n]``
-    holding uint32, for keys given as ints or int64 ``[..., 1]``."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _bits(k1, k2, n: int, device, start: int = 0) -> torch.Tensor:
+    """jax's 32-bit ``random_bits`` at counters ``[start, start + n)``:
+    int64 ``[..., n]`` holding uint32, for keys given as ints or int64
+    ``[..., 1]``."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     y0, y1 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK)
     return y0 ^ y1
 
@@ -231,8 +238,8 @@ def normal(key: KeyLike, shape: Sequence[int],
 
 def truncated_normal(key: KeyLike, lower: float, upper: float,
                      shape: Sequence[int],
-                     device: torch.device | str | None = None
-                     ) -> torch.Tensor:
+                     device: torch.device | str | None = None,
+                     start: int = 0) -> torch.Tensor:
     """float32 normals truncated to ``(lower, upper)`` (``jax.random.
     truncated_normal``), on CUDA unless ``device`` names another.
 
@@ -241,12 +248,13 @@ def truncated_normal(key: KeyLike, lower: float, upper: float,
     ``√2·erfinv(u)`` clipped to ``(nextafter(lower, +inf),
     nextafter(upper, −inf))``. ``torch.erf``/``torch.erfinv`` are not
     XLA's approximations, so values agree with jax's within the
-    ``erfinv`` gap of ``normal``."""
+    ``erfinv`` gap of ``normal``. ``start`` draws counters ``[start,
+    start + prod(shape))``, as ``uniform`` does."""
     lo, hi = np.float32(lower), np.float32(upper)
     ends = torch.erf(torch.tensor([lo, hi], dtype=torch.float32)
                      / torch.tensor(_SQRT2, dtype=torch.float32))
     a, b = (float(x) for x in ends)
-    u = uniform(key, shape, device, minval=a, maxval=b)
+    u = uniform(key, shape, device, minval=a, maxval=b, start=start)
     out = torch.erfinv(u) * _SQRT2
     return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
                        float(np.nextafter(hi, np.float32(-np.inf))))

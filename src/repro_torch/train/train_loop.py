@@ -7,14 +7,17 @@ params_of(model)``, its parameters by name. A step points the module at
 the tree it is given (``bind_params``, no copy), so each step computes
 with exactly the tensors passed in:
 
-* ``make_train_step(model, opt_cfg)`` → ``(params, opt_state, batch) ->
-  (params, opt_state, metrics)``: the loss and its gradient by autograd,
+* ``make_train_step(model, opt_cfg)`` → ``(params, opt_state, batch)
+  -> (params, opt_state, metrics)``: the loss and its gradient by autograd,
   then ``train.optimizer.apply_updates``; metrics ``loss``, ``lr``,
   ``grad_norm`` (device tensors, nothing read back);
 * ``make_eval_step`` → ``(params, batch) -> loss``;
 * ``make_serve_step`` → ``(params, tokens, state) -> (next [B, 1] int32,
   state)``, greedy (the first maximal index, as ``jnp.argmax``);
 * ``make_prefill_step`` → ``(params, batch) -> last-position logits``.
+
+Each factory takes the reference's ``num_groups`` (1 by default): the
+token groups an MoE layer dispatches in.
 """
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ from repro_torch.models import model as M
 from repro_torch.train.optimizer import AdamWConfig, OptState, apply_updates
 
 
-def make_train_step(model: M.TransformerLM, opt_cfg: AdamWConfig):
+def make_train_step(model: M.TransformerLM, opt_cfg: AdamWConfig,
+                    num_groups: int = 1):
     def train_step(params: Dict[str, torch.Tensor], opt_state: OptState,
                    batch: Dict[str, Any]):
         M.bind_params(model, params)
         names = list(params)
         with torch.enable_grad():
-            loss = M.loss_fn(model, batch)
+            loss = M.loss_fn(model, batch, num_groups=num_groups)
             named = dict(model.named_parameters())
             grads = torch.autograd.grad(loss, [named[n] for n in names])
         with torch.no_grad():
@@ -44,31 +48,32 @@ def make_train_step(model: M.TransformerLM, opt_cfg: AdamWConfig):
     return train_step
 
 
-def make_eval_step(model: M.TransformerLM):
+def make_eval_step(model: M.TransformerLM, num_groups: int = 1):
     @torch.no_grad()
     def eval_step(params, batch):
         M.bind_params(model, params)
-        return M.loss_fn(model, batch)
+        return M.loss_fn(model, batch, num_groups=num_groups)
     return eval_step
 
 
-def make_serve_step(model: M.TransformerLM):
+def make_serve_step(model: M.TransformerLM, num_groups: int = 1):
     @torch.no_grad()
     def serve_step(params, tokens, state):
         M.bind_params(model, params)
-        logits, state = M.decode_step(model, tokens, state)
+        logits, state = M.decode_step(model, tokens, state,
+                                      num_groups=num_groups)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], state
     return serve_step
 
 
-def make_prefill_step(model: M.TransformerLM):
+def make_prefill_step(model: M.TransformerLM, num_groups: int = 1):
     """Prefill: full-sequence forward returning last-position logits
     (the cache is filled by ``decode_step`` over the prompt, as in the
     reference)."""
     @torch.no_grad()
     def prefill_step(params, batch):
         M.bind_params(model, params)
-        x, _, _ = M.forward(model, batch)
+        x, _, _ = M.forward(model, batch, num_groups=num_groups)
         return M.logits_from_hidden(model, x[:, -1:, :])
     return prefill_step

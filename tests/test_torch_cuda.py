@@ -794,3 +794,98 @@ def test_lm_card_equals_cpu(card):
         assert (cg[n].cpu() - g).abs().max() <= 1e-4 * g.abs().max(), n
     assert (clg - hlg).abs().max() <= 1e-4 * hlg.abs().max()
     assert torch.equal(cgen, hgen)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
+def test_moe_layer_card_equals_cpu(card, arch):
+    """An MoE layer of reduced ``arch`` in float32, TF32 off, at
+    ``num_groups`` 1 and 4: the routing integers equal (a token whose CPU
+    gap between its k-th and (k+1)-th probability is below 1e-5 may
+    route apart; the check then holds the other tokens' experts and
+    skips the ranks), output and aux within 1e-5, input and leaf
+    gradients within 1e-4 of each leaf's largest."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.moe import MoE, routing_margin
+    cfg = reduced(get_config(arch))
+    host = MoE(prng.PRNGKey(2), cfg, cfg.moe, "cpu")
+    dev_moe = MoE(None, cfg, cfg.moe, card)
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(dev_moe.named_parameters(),
+                                  host.named_parameters()):
+            p.copy_(q)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for g in (1, 4):
+            runs = {}
+            for mod, d in ((dev_moe, card), (host, "cpu")):
+                xd = x.to(d).requires_grad_()
+                _, r, _ = mod.route(xd, g)
+                y, aux = mod(xd, g)
+                grads = torch.autograd.grad(y.square().sum() + aux,
+                                            [xd] + list(mod.parameters()))
+                runs[d] = (r, y, aux, grads)
+            (rc, yc, ac, gc), (rh, yh, ah, gh) = runs[card], runs["cpu"]
+            xg = x.reshape(g, -1, cfg.d_model)
+            near = routing_margin(xg @ host.router.detach(),
+                                  cfg.moe.top_k) < 1e-5
+            both = rc.keep.cpu() & rh.keep
+            top_c = torch.where(both, rc.e_idx.cpu(), -1)
+            top_h = torch.where(both, rh.e_idx, -1)
+            assert torch.equal(top_c[~near], top_h[~near])
+            if bool(near.any()):
+                continue
+            for f in ("e_idx", "r_idx", "keep"):
+                assert torch.equal(getattr(rc, f).cpu(), getattr(rh, f)), f
+            torch.testing.assert_close(yc.cpu(), yh, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(ac.cpu(), ah, rtol=1e-5, atol=1e-5)
+            for a, b in zip(gc, gh):
+                assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_mla_moe_decode_card_equals_cpu_without_host_sync(card):
+    """Reduced deepseek-v2 (MLA, shared and routed experts) in float32,
+    TF32 off: 8 decode steps' logits within 1e-4 of the largest, card
+    against CPU; then a bf16 served copy decodes 8 greedy tokens under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import make_serve_step
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = {}
+        for dev in (card, "cpu"):
+            model, batch = _lm("deepseek-v2-236b", dev)
+            state = M.init_decode_state(model, 2, 16)
+            out = []
+            with torch.no_grad():
+                for t in range(8):
+                    lg, state = M.decode_step(
+                        model, batch["tokens"][:, t:t + 1], state,
+                        num_groups=2)
+                    out.append(lg.cpu())
+            logits[dev] = torch.cat(out, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lc, lh = logits[card], logits["cpu"]
+    assert (lc - lh).abs().max() <= 1e-4 * lh.abs().max()
+    model, batch = _lm("deepseek-v2-236b", card, dtype="bfloat16")
+    M.cast_for_serving(model)
+    p = M.params_of(model)
+    state = M.init_decode_state(model, 2, 32)
+    serve = make_serve_step(model)
+    tok = batch["tokens"][:, :1]
+    serve(p, tok, state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            tok, state = serve(p, tok, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state.pos) == 9

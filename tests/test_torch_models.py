@@ -34,7 +34,9 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
-ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b"]
+ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b", "deepseek-v2-236b",
+         "arctic-480b"]
+MOE_ARCHS = ["deepseek-v2-236b", "arctic-480b"]
 RTOL = ATOL = 1e-5
 LEAF_TOL = 1e-4
 
@@ -106,7 +108,6 @@ def test_registry_lists_the_reference_archs():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "5b"), ("arctic-480b", "5b"),
     ("xlstm-125m", "5c"), ("jamba-v0.1-52b", "5c"),
     ("seamless-m4t-medium", "5d"), ("qwen2-vl-72b", "5d")])
 def test_unported_families_are_refused(arch, item):
@@ -426,5 +427,97 @@ def test_lm_entry_points_need_a_card_or_cpu(monkeypatch):
 
 
 def test_attention_config_kinds():
-    with pytest.raises(NotImplementedError, match="5b"):
-        TA.Attention(None, AttentionConfig(kind="mla"), 16, "cpu")
+    """``make_attention`` builds GQA and MLA with the reference's leaves and
+    refuses an unknown kind."""
+    gqa = TA.make_attention(None, AttentionConfig(kind="gqa"), 16, "cpu")
+    assert isinstance(gqa, TA.Attention)
+    mla_cfg = AttentionConfig(kind="mla", n_heads=2, q_lora_rank=8,
+                              kv_lora_rank=4, qk_nope_head_dim=4,
+                              qk_rope_head_dim=2, v_head_dim=4)
+    mla = TA.make_attention(None, mla_cfg, 16, "cpu")
+    assert isinstance(mla, TA.MLA)
+    assert {n: tuple(p.shape) for n, p in mla.named_parameters()} == {
+        k: v.shape for k, v in RA.init_attention(
+            jax.random.PRNGKey(0), mla_cfg, 16).items()}
+    with pytest.raises(ValueError, match="unknown attention kind"):
+        TA.make_attention(None, AttentionConfig(kind="bogus"), 16, "cpu")
+    with pytest.raises(ValueError):
+        TA.Attention(None, mla_cfg, 16, "cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_continues_from_reference_state(arch, ref_params):
+    """``decode_state_from_ref`` carries the reference's MLA latent caches
+    (deepseek) and GQA caches (arctic) across after 5 steps."""
+    rcfg, cfg = _cfgs(arch)
+    params = ref_params(arch)
+    model = interop.lm_params_from_ref(params, cfg, "cpu")
+    rb, tb = _batch(cfg.vocab_size, S=8, seed=9)
+    rstate = RM.init_decode_state(rcfg, 2, 16)
+    for t in range(5):
+        _, rstate = _ref_decode(params, rcfg, rb["tokens"][:, t:t + 1],
+                                rstate)
+    state = interop.decode_state_from_ref(rstate, cfg, "cpu")
+    kind = TA.MLACache if cfg.attention.kind == "mla" else TA.KVCache
+    assert int(state.pos) == 5 and all(isinstance(c, kind)
+                                       for c in state.caches)
+    with torch.no_grad():
+        for t in range(5, 8):
+            want, rstate = _ref_decode(params, rcfg,
+                                       rb["tokens"][:, t:t + 1], rstate)
+            got, state = TM.decode_step(model, tb["tokens"][:, t:t + 1],
+                                        state)
+            _close(got, want)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_params_round_trip(arch, ref_params):
+    """``lm_params_to_ref`` inverts ``lm_params_from_ref`` bit for bit on
+    the MoE and MLA leaves, with the reference's tree structure."""
+    params = ref_params(arch)
+    _, cfg = _cfgs(arch)
+    back = interop.lm_params_to_ref(
+        interop.lm_params_from_ref(params, cfg, "cpu"))
+    flat_want, tree_want = jax.tree_util.tree_flatten(params)
+    flat_got, tree_got = jax.tree_util.tree_flatten(back)
+    assert tree_got == tree_want
+    for g, w in zip(flat_got, flat_want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_with_groups_matches_reference(arch, ref_params):
+    """``num_groups`` 4 (dividing the 64 tokens) and 3 (not: gcd 1) in
+    ``forward`` and ``loss_fn``: the same pre-logits, aux and loss as the
+    reference's."""
+    rcfg, cfg = _cfgs(arch)
+    params = ref_params(arch)
+    model = interop.lm_params_from_ref(params, cfg, "cpu")
+    rb, tb = _batch(cfg.vocab_size)
+    for g in (4, 3):
+        want_x, _, want_aux = RM.forward(params, rcfg, rb, num_groups=g)
+        with torch.no_grad():
+            x, _, aux = TM.forward(model, tb, num_groups=g)
+            loss = TM.loss_fn(model, tb, num_groups=g)
+        _close(x, want_x)
+        _close(aux, want_aux)
+        assert float(aux) > 0
+        _close(loss, RM.loss_fn(params, rcfg, rb, num_groups=g))
+
+
+def test_moe_serving_cast_keeps_mla_norms_float32(ref_params):
+    """``cast_for_serving`` keeps ``q_norm``/``kv_norm`` float32 and casts
+    the MoE and MLA matrices; ``init_params(dtype=bf16)`` gives the same
+    bits without the float32 model."""
+    _, cfg = _cfgs("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    served = TM.cast_for_serving(TM.init_params(cfg, prng.PRNGKey(0),
+                                                "cpu"))
+    direct = TM.init_params(cfg, prng.PRNGKey(0), "cpu",
+                            dtype=torch.bfloat16)
+    for (n, p), (n2, q) in zip(served.named_parameters(),
+                               direct.named_parameters()):
+        assert n == n2 and p.dtype == q.dtype and torch.equal(p, q), n
+        want = torch.float32 if n.endswith(("q_norm", "kv_norm", "scale")) \
+            else torch.bfloat16
+        assert p.dtype == want, n

@@ -38,7 +38,9 @@ from repro_torch.train.optimizer import AdamWConfig, init_opt_state, lr_at
 from repro_torch.train.train_loop import (make_eval_step, make_prefill_step,
                                           make_serve_step, make_train_step)
 
-ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b"]
+ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b", "deepseek-v2-236b",
+         "arctic-480b"]
+MOE_ARCHS = ["deepseek-v2-236b", "arctic-480b"]
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 RTOL = 1e-5
 LEAF_TOL = 1e-4
@@ -124,7 +126,7 @@ def test_eval_and_prefill_steps_match_reference():
                                atol=RTOL)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-0.5b"] + MOE_ARCHS)
 def test_serve_step_matches_reference(arch):
     """12 greedy steps from a 4-token prompt: the same tokens, int32
     ``[B, 1]``."""
@@ -221,3 +223,71 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
     rstep = jax.jit(ref_train_step(rcfg, RAdamW(**OPT)))
     p3, o3, m3 = rstep(got_p, got_o, rb)
     assert int(o3.step) == 3 and np.isfinite(float(m3["loss"]))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_checkpoints_cross_both_ways(arch, tmp_path):
+    """MoE and MLA leaves and their moments: the reference's checkpoint
+    after 2 steps at ``num_groups=2`` restores into the port bit for bit
+    and continues exactly as the state carried in memory does; the
+    port's save restores in the reference bit for bit."""
+    rcfg, cfg, params, rb, tb = _setup(arch, seed=5)
+    rstep = jax.jit(ref_train_step(rcfg, RAdamW(**OPT), num_groups=2))
+    p_r, o_r = params, ref_init_opt(params, RAdamW(**OPT))
+    for _ in range(2):
+        p_r, o_r, _ = rstep(p_r, o_r, rb)
+    rckpt.save(os.path.join(tmp_path, "params"), p_r, 2)
+    rckpt.save(os.path.join(tmp_path, "opt"), o_r, 2)
+    model = interop.lm_params_from_ref(params, cfg, "cpu")
+    target_o = interop.lm_opt_state_to_ref(
+        init_opt_state(TM.params_of(model), AdamWConfig(**OPT)), cfg)
+    got_p = tckpt.restore(os.path.join(tmp_path, "params"),
+                          interop.tree_from_ref(
+                              interop.lm_params_to_ref(model), "cpu"))
+    got_o = tckpt.restore(os.path.join(tmp_path, "opt"),
+                          interop.tree_from_ref(target_o, "cpu"))
+    for (k, a), (_, b) in zip(tckpt._flatten_with_paths(got_p),
+                              tckpt._flatten_with_paths(p_r)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=k)
+    runs = []
+    for p_src, o_src in ((got_p, got_o), (p_r, o_r)):
+        m = interop.lm_params_from_ref(p_src, cfg, "cpu")
+        step = make_train_step(m, AdamWConfig(**OPT), num_groups=2)
+        runs.append(_train(step, TM.params_of(m),
+                           interop.lm_opt_state_from_ref(o_src, cfg, "cpu"),
+                           [tb]))
+    (p1, o1), (p2, o2) = runs
+    for n in p1:
+        for a, b in ((p1[n], p2[n]), (o1.mu[n], o2.mu[n]),
+                     (o1.nu[n], o2.nu[n])):
+            assert torch.equal(a, b), n
+    # the port's save, read by the reference
+    tckpt.save(os.path.join(tmp_path, "port_params"),
+               interop.lm_tree_to_ref(p1, cfg), 3)
+    tckpt.save(os.path.join(tmp_path, "port_opt"),
+               interop.lm_opt_state_to_ref(o1, cfg), 3)
+    back_p = rckpt.restore(os.path.join(tmp_path, "port_params"), params)
+    back_o = rckpt.restore(os.path.join(tmp_path, "port_opt"), o_r)
+    want_p = interop.lm_tree_to_ref(p1, cfg)
+    for a, b in zip(jax.tree_util.tree_leaves(back_p),
+                    jax.tree_util.tree_leaves(want_p)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert int(back_o.step) == 3
+    back = interop.lm_opt_state_from_ref(back_o, cfg, "cpu")
+    for n in p1:
+        assert torch.equal(back.mu[n], o1.mu[n])
+        assert torch.equal(back.nu[n], o1.nu[n])
+
+
+def test_moe_train_step_with_groups_matches_reference():
+    """One step of reduced deepseek-v2 at ``num_groups=4``: the loss (with
+    aux), ``grad_norm`` and ``lr`` as the reference's."""
+    rcfg, cfg, params, rb, tb = _setup("deepseek-v2-236b", seed=6)
+    rstep = jax.jit(ref_train_step(rcfg, RAdamW(**OPT), num_groups=4))
+    model = interop.lm_params_from_ref(params, cfg, "cpu")
+    step = make_train_step(model, AdamWConfig(**OPT), num_groups=4)
+    p_t = TM.params_of(model)
+    _, _, m_r = rstep(params, ref_init_opt(params, RAdamW(**OPT)), rb)
+    _, _, m_t = step(p_t, init_opt_state(p_t, AdamWConfig(**OPT)), tb)
+    for k in m_r:
+        np.testing.assert_allclose(float(m_t[k]), float(m_r[k]), rtol=RTOL)
