@@ -14,7 +14,7 @@ tile-local contract), times one fused hop alone, drives the streaming
 main path (ingest -> index rebuild -> fused-hop walks) at full size
 through ``StreamingEngine.replay_device``, replays the same stream on the
 tiled path, holds the seven first-order layouts to byte-identical walks
-at full width, runs weight mode at a reduced window, serves 1,024 walk
+at full width, runs weight mode at a reduced window, serves 512 walk
 queries through ``WalkService`` on the fused path against the main
 path's window while its next batch is ingested (checked against solo
 runs, the grouped path, a synchronous ring and the CPU), replays the
@@ -22,7 +22,7 @@ stream through the node-partitioned window with 4 shards on the card
 (``DistributedStreamingEngine``, byte-equal to the single-device replay
 across a live ``rebalance``), samples walk-axis-sharded walks on the
 fused, tiled and grouped paths, holds small sharded replays, reshards
-and the static walker to the CPU and to one shard, serves 96 queries
+and the static walker to the CPU and to one shard, serves 48 queries
 through ``WalkService(num_shards=4)`` on the main path's window while its
 next batch is ingested (every ticket equal to the single-device
 service's), holds small sharded services to the CPU and to single-device
@@ -38,7 +38,10 @@ bf16, remat per block), serves qwen2-0.5b at full size from its KV cache
 at full width and 2 layers on the card to the CPU, serves deepseek-v2-236b
 (MLA, 160 routed experts) and arctic-480b (128 experts and a dense
 residual) at full width and cut depth in bf16 on prompts of the same
-walks, holds both MoE models reduced on the card to the CPU, and prints
+walks, holds both MoE models reduced on the card to the CPU, trains
+xlstm-125m (mLSTM and sLSTM) at full size on the same walks, serves it
+and jamba-v0.1-52b (mamba, attention, MoE) at full width on one period
+in bf16, holds both in float32 on the card to the CPU, and prints
 one JSON line per phase, each with its wall seconds (``wall_s``, since
 the line before). The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
@@ -126,23 +129,55 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# bitwise_not_ launches that open every trace (``trace_kernels``)
+PRIMER_KERNELS = 256
+
+
+def trace_kernels(fn, host_ops: bool = False):
+    """One call of ``fn`` under torch.profiler: ([(kernel name, start µs,
+    end µs)] of the device, wall ms of the call). The trace opens with
+    ``PRIMER_KERNELS`` ``bitwise_not_`` launches, left out of the result:
+    after many traces in one process the first ~60 device events of a
+    trace can go unrecorded (seen on the card: a decode step's ~800
+    kernels read ~57 fewer late in the script), and the primer takes that
+    loss. The events are read from the raw trace (``kineto_results``),
+    minutes faster than the profiler's event tree for 10^5–10^6 kernels.
+    ``host_ops`` also traces the host's ops, as the profiles of PR 11–21
+    did, which lengthens the wall time a little."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    primer = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
+        for _ in range(PRIMER_KERNELS):
+            primer.bitwise_not_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda
+            and "bitwise_not" not in e.name()], wall_ms
+
+
 def device_ms(fn, match, reps: int = 20):
     """Mean device milliseconds per call of the kernels whose names contain
     one of ``match``, from a torch.profiler trace; None if the trace holds
     no such device event. Unlike ``cuda_ms`` it excludes the host time the
     wrapper takes to issue a launch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and any(m in e.name for m in match)]
+    us = [t - s for name, s, t in trace_kernels(calls, host_ops=True)[0]
+          if any(m in name for m in match)]
     return sum(us) / reps / 1e3 if us else None
 
 
@@ -281,32 +316,27 @@ def busy_us(spans) -> float:
     return busy
 
 
+def kernel_reading(kernels, wall_ms, top: int = 8) -> dict:
+    """Kernels, busy ms (the union of their spans), idle share and the
+    largest kernels by device time of ``trace_kernels``' result."""
+    by_name = {}
+    for name, s, t in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (t - s) / 1e3
+    busy = busy_us([(s, t) for _, s, t in kernels]) / 1e3
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(kernels=len(kernels), device_ms=busy, traced_wall_ms=wall_ms,
+                device_idle_share=1 - busy / wall_ms if kernels else None,
+                top_kernels_ms={k[:80]: v for k, v in largest})
+
+
 def profile_call(fn) -> dict:
     """Device kernels, busy ms and idle share of one call of ``fn``, after
     a warm-up call, from a torch.profiler trace, with the largest kernels
     by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + (e.time_range.end - e.time_range.start) / 1e3
-    busy = busy_us(spans) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(kernels=len(spans), device_ms=busy, traced_wall_ms=wall_ms,
-                device_idle_share=1 - busy / wall_ms if spans else None,
-                top_kernels_ms={k[:80]: v for k, v in top})
+    return kernel_reading(*trace_kernels(fn, host_ops=True))
 
 
 def two_stage_hop(index, s_node, s_time, u, scfg, sched):
@@ -343,7 +373,6 @@ def profile_batch(engine, batch, wcfg) -> dict:
     by CUDA events, then kernel time by name and the device's busy share
     from a torch.profiler trace of the same batch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as prng
     from repro_torch.core.edge_store import stack_batches, EdgeBatch
     from repro_torch.core.walk_engine import generate_walks
@@ -371,38 +400,20 @@ def profile_batch(engine, batch, wcfg) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     out = dict(ingest_ms=start.elapsed_time(mid),
                walks_ms=mid.elapsed_time(end), wall_ms=wall_ms)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        s, t = e.time_range.start, e.time_range.end
-        spans.append((s, t))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s) / 1e3
-    busy = busy_us(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    reading = kernel_reading(*trace_kernels(run, host_ops=True), top=12)
     # device kernels of one hop's draw, to set against the batch's total
     draw_key = prng.PRNGKey(8)
     prng.uniform(draw_key, (wcfg.num_walks,), engine.device)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_u:
-        prng.uniform(draw_key, (wcfg.num_walks,), engine.device)
-        torch.cuda.synchronize()
-    out.update(uniform_kernels=sum(
-        e.device_type == torch.autograd.DeviceType.CUDA
-        for e in prof_u.events()))
-    out.update(traced_wall_ms=traced_ms,
-               device_busy_ms=busy / 1e3 if spans else None,
-               device_idle_share=(1 - busy / 1e3 / traced_ms)
-               if spans else None,
-               kernels=len(spans),
-               top_kernels_ms={k[:80]: v for k, v in top})
+    out.update(uniform_kernels=len(trace_kernels(
+        lambda: prng.uniform(draw_key, (wcfg.num_walks,), engine.device),
+        host_ops=True)[0]))
+    out.update(traced_wall_ms=reading["traced_wall_ms"],
+               device_busy_ms=reading["device_ms"] if reading["kernels"]
+               else None,
+               device_idle_share=reading["device_idle_share"],
+               kernels=reading["kernels"],
+               top_kernels_ms=reading["top_kernels_ms"])
     return out
 
 
@@ -811,7 +822,7 @@ def paths_agree(index, wcfg):
 
 
 # the serving phase: queries in all, per wave, and compared with solo runs
-SERVE_QUERIES = 1024
+SERVE_QUERIES = 512
 SERVE_WAVE = 64
 SERVE_SOLO = 64
 # window batches ingested before serving; the next is ingested while
@@ -970,17 +981,10 @@ def profile_lane_batch(call, hops: int, draw_call,
     batch's ~160,000 kernels make its trace slow to read back, and their
     own tracing lengthens the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if host_ops else [])) as prof:
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, wall_ms = trace_kernels(call, host_ops)
+    spans = [(s, t) for _, s, t in kernels]
     busy = busy_us(spans) / 1e3
     draw = profile_call(draw_call)["kernels"]
     return dict(kernels=len(spans), kernels_per_hop=len(spans) / hops,
@@ -1187,14 +1191,17 @@ def serve_cuda_equals_cpu(dev) -> dict:
 
 
 # ---- alias tables, node2vec and probes ------------------------------------
+# batches of the main stream replayed on the table path (24 until the
+# recurrent LM phases needed the seconds)
+TABLE_BATCHES = 16
 # served queries of serve_tables, compared with solo runs
-SERVE_TABLE_QUERIES = 64
+SERVE_TABLE_QUERIES = 32
 SERVE_TABLE_SOLO = 16
 # node2vec phases: (p, q) of the config walks
 N2V_PQ = (0.5, 2.0)
 # tables_cuda_equals_cpu's served queries, in six waves
-TABLES_EQ_QUERIES = 30
-TABLES_EQ_WAVE = 5
+TABLES_EQ_QUERIES = 18
+TABLES_EQ_WAVE = 3
 
 
 def count_syncs(fn):
@@ -1626,6 +1633,10 @@ def probed_replay(cfg, batches, wcfg, unprobed_walks, unprobed_syncs,
 # ---- scale-out: the node-partitioned window, D shards on one card ---------
 SHARDS = 4
 SHARD_WALK_PATHS = ("fused", "tiled", "grouped")
+# batches of sharded_path's second half, after the rebalance (12 until
+# the recurrent LM phases needed the seconds): the window is full after
+# the first half, so each of them evicts
+SHARD_SECOND_HALF = 4
 
 
 def shard_config(args):
@@ -1669,7 +1680,6 @@ def profile_sharded_batch(engine, batch, wcfg) -> dict:
     busy ms and the idle share of the batch; then one walk-migration
     exchange alone at the replay's shapes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as prng
     from repro_torch.core.distributed import exchange_by_owner
     from repro_torch.core.edge_store import stack_batches
@@ -1702,15 +1712,8 @@ def profile_sharded_batch(engine, batch, wcfg) -> dict:
     # the device alone: the host ops of ~160,000 walk kernels make the
     # trace slow to read back (profile_lane_batch's host_ops=False)
     for name, fn in (("ingest", ingest), ("walks", lambda: walks(states))):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            traced[name] = (time.perf_counter() - t0) * 1e3
-        spans = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy[name] = busy_us(spans) / 1e3
+        spans, traced[name] = trace_kernels(fn)
+        busy[name] = busy_us([(s, t) for _, s, t in spans]) / 1e3
         kernels[name] = len(spans)
     out.update(ingest_kernels=kernels["ingest"],
                walk_kernels=kernels["walks"],
@@ -1792,7 +1795,8 @@ def sharded_walks(single, wcfg, dev) -> dict:
 
 def sharded_path(args, cfg, batches, dev) -> dict:
     """The node-partitioned window at full size, 4 shards on one card:
-    batches 1-12, ``rebalance()``, batches 13-24, each half byte-equal to
+    batches 1-12, ``rebalance()``, batches 13-16 (``SHARD_SECOND_HALF``),
+    each half byte-equal to
     the single-device replay of the same batches, no drops, hop validity
     1.0, ``weight_prefix`` launched twice per shard and ingest. Between
     the halves, ``sharded_walks`` on the single-device window."""
@@ -1814,7 +1818,9 @@ def sharded_path(args, cfg, batches, dev) -> dict:
     sharded = DistributedStreamingEngine(cfg_sh, B, devices=[dev] * SHARDS,
                                          probes=False)
     reading = dict(shards=SHARDS, shard_config=dataclasses.asdict(
-        cfg_sh.shard), batches=len(batches), walks=args.walks,
+        cfg_sh.shard), batches=half + len(batches[half:half +
+                                                  SHARD_SECOND_HALF]),
+        walks=args.walks,
         max_length=args.length, start_mode="all_nodes",
         single_device_path=cfg.scheduler.path)
     halves = {}
@@ -1825,7 +1831,8 @@ def sharded_path(args, cfg, batches, dev) -> dict:
     torch.cuda.empty_cache()
     reading["allocated_at_start_gib"] = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    for h, part in (("first", batches[:half]), ("second", batches[half:])):
+    second = batches[half:half + SHARD_SECOND_HALF]
+    for h, part in (("first", batches[:half]), ("second", second)):
         if h == "second":
             walks_reading = sharded_walks(single, wcfg, dev)
             loads_before = sharded.shard_loads()
@@ -1893,7 +1900,9 @@ def sharded_path(args, cfg, batches, dev) -> dict:
                 f"sharded {h} half: shard loads {loads} != edges_active")
     reading["halves"] = halves
     reading["sharded_walks"] = walks_reading
-    reading["profile"] = profile_sharded_batch(sharded, batches[-1], wcfg)
+    reading["profile"] = profile_sharded_batch(
+        sharded, batches[min(half + SHARD_SECOND_HALF, len(batches) - 1)],
+        wcfg)
     reading["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     reading["weight_prefix_launches"] = sum(
         halves[h]["launches"]["weight_prefix"] for h in halves)
@@ -2039,8 +2048,8 @@ def sharded_small(dev) -> dict:
 # ---- sharded serving and the window checkpoints --------------------------
 # queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: six waves, the
 # next batch ingested from the fourth to the sixth
-SERVE_SHARDED_QUERIES = 96
-SERVE_SHARDED_WAVE = 16
+SERVE_SHARDED_QUERIES = 48
+SERVE_SHARDED_WAVE = 8
 # serve_sharded_small's 16 queries in waves of 3: six waves, as above
 SERVE_SHARDED_SMALL_WAVE = 3
 # window_checkpoint's reduced stream: nodes, edges per batch, batches
@@ -2352,7 +2361,8 @@ def window_checkpoint(dev) -> dict:
     from repro_torch.obs.registry import MetricsRegistry
     t_start = time.perf_counter()
     g = powerlaw_temporal_graph(CKPT_NODES, CKPT_BATCH * CKPT_BATCHES,
-                                skew=1.2, t_max=10_000_000, seed=4)
+                                skew=1.2, t_max=10_000_000, seed=4,
+                                device=dev)
     batches = list(chronological_batches(g, CKPT_BATCHES))
     # range placement puts the hubs and every all-nodes start on shard 0
     # at 2 and 4 shards: its capacities are those of a whole batch
@@ -2766,7 +2776,7 @@ def optimizer_cuda_equals_cpu(dev) -> dict:
 
 # examples/train_lm_on_walks.py at full size: olmo-1b, walks of the main
 # path's final window packed into batch × seq tokens, AdamW
-LM_TRAIN = dict(arch="olmo-1b", walks=1 << 14, batch=8, seq=2048, steps=10,
+LM_TRAIN = dict(arch="olmo-1b", walks=1 << 14, batch=8, seq=2048, steps=5,
                 lr=3e-4, warmup_steps=2)
 # examples/serve_lm.py at full size: qwen2-0.5b from the KV cache
 LM_SERVE = dict(arch="qwen2-0.5b", prompts=64, prompt_len=512, max_seq=1024,
@@ -2997,15 +3007,26 @@ def _lm_grads(model, params, batch, num_groups=1):
         [named[n] for n in params])))
 
 
-def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2):
+def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
+                 zero_leaves=False):
     """``n_steps`` ``make_train_step`` steps on the card and on the CPU,
     each started from the CPU's state. Returns (gaps, unresolved elements,
     step bound): loss and grad norm relative; gradients, moments and
     params of each leaf's largest magnitude, except params whose AdamW
     direction is unresolved (``LM_EQ_UNRESOLVED``), read against the step
-    bound 2·lr."""
-    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
-                                             lr_at, tree_map)
+    bound 2·lr.
+
+    With ``zero_leaves``, a leaf that is 0 before the step (a layernorm's
+    bias at init) is held apart. Its largest magnitude after the step is
+    lr, and an element at the unresolved threshold, whose gradient the
+    gradient check holds only to 10%, moves by up to ~1e-4·lr through
+    AdamW's ε: so its end-to-end gap is read (``zero_leaf_params``), and
+    every leaf's step is held instead against the CPU's AdamW on the
+    card's own gradients (``params_given_card_grads``), the arithmetic
+    given the gradients that check holds."""
+    import torch
+    from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
+                                             init_opt_state, lr_at, tree_map)
     from repro_torch.train.train_loop import make_train_step
     b_card = {k: v.to(dev) for k, v in batch.items()}
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -3014,6 +3035,13 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2):
     p, o = p_host, init_opt_state(p_host, opt_cfg)
     gaps = dict(loss=0.0, grad_norm=0.0, grads=0.0, mu=0.0, nu=0.0,
                 params=0.0, unresolved_max_abs=0.0)
+    if zero_leaves:
+        gaps.update(zero_leaf_params=0.0, params_given_card_grads=0.0)
+    worst = {}                   # the leaf of each largest gap
+
+    def note(k, gap, n):
+        if gap > gaps[k]:
+            gaps[k], worst[k] = gap, n
     unresolved, bound = 0, 0.0
     for t in range(n_steps):
         pc, oc = tree_map(lambda x: x.to(dev), (p, o))
@@ -3026,28 +3054,39 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2):
                           / abs(float(mh[k])))
         step_bound = 2 * float(lr_at(opt_cfg, t + 1))
         bound = max(bound, step_bound)
+        if zero_leaves:
+            with torch.no_grad():
+                pg, _, _ = apply_updates(p, {n: x.cpu() for n, x in
+                                             gc.items()}, o, opt_cfg)
         for n, ref in ph.items():
-            gaps["grads"] = max(gaps["grads"], _leaf_gap(gc[n], gh[n]))
-            gaps["mu"] = max(gaps["mu"], _leaf_gap(oc.mu[n], oh.mu[n]))
-            gaps["nu"] = max(gaps["nu"], _leaf_gap(oc.nu[n], oh.nu[n]))
+            note("grads", _leaf_gap(gc[n], gh[n]), n)
+            note("mu", _leaf_gap(oc.mu[n], oh.mu[n]), n)
+            note("nu", _leaf_gap(oc.nu[n], oh.nu[n]), n)
             unres = gh[n].abs() <= LM_EQ_UNRESOLVED * gh[n].abs().max()
             diff = (pc[n].cpu() - ref).abs()
-            if (~unres).any():
-                gaps["params"] = max(gaps["params"], float(
-                    diff[~unres].max() / ref.abs().max()))
+            zero = zero_leaves and not bool(p[n].any())
+            if zero_leaves:
+                note("params_given_card_grads", _leaf_gap(pc[n], pg[n]), n)
+            if zero and (~unres).any():
+                note("zero_leaf_params", float(diff[~unres].max()
+                                               / ref.abs().max()), n)
+            elif (~unres).any():
+                note("params", float(diff[~unres].max() / ref.abs().max()),
+                     n)
             if unres.any():
-                gaps["unresolved_max_abs"] = max(
-                    gaps["unresolved_max_abs"],
-                    float(diff[unres].max()) / step_bound)
+                note("unresolved_max_abs", float(diff[unres].max())
+                     / step_bound, n)
             unresolved += int(unres.sum())
         p, o = ph, oh
+    gaps["worst_leaf"] = worst
     return gaps, unresolved, bound
 
 
 def _train_gaps_hold(gaps) -> bool:
     return (gaps["loss"] <= LM_EQ_LOSS_RTOL
             and gaps["grad_norm"] <= LM_EQ_LOSS_RTOL
-            and max(gaps[k] for k in ("grads", "mu", "nu", "params"))
+            and max(gaps.get(k, 0.0) for k in (
+                "grads", "mu", "nu", "params", "params_given_card_grads"))
             <= LM_EQ_LEAF_TOL
             and gaps["unresolved_max_abs"] <= 1.0)
 
@@ -3174,7 +3213,7 @@ LM_MOE = dict(prompts=16, prompt_len=512, max_seq=1024, decode_batch=64,
 # the CPU side takes seconds; a token whose CPU gap between its k-th and
 # (k+1)-th routing probability is below LM_MOE_NEAR_TIE may route apart
 LM_MOE_EQ = dict(layers=2, d_model=1024, vocab=8192, experts=64, batch=4,
-                 seq=128, groups=(1, 4))
+                 seq=128, groups=(1, 4), steps=1)
 LM_MOE_NEAR_TIE = 1e-5
 # init's peak may exceed the parameters plus one slab's draw by the
 # caching allocator's rounding of ~30 leaves and their temporaries
@@ -3395,6 +3434,47 @@ def lm_moe_serve_full(engine, args, dev) -> dict:
     return out
 
 
+def _routing_agreement(card, host, cfg, tokens, dev, g):
+    """Every MoE layer's routing on one forward of ``tokens`` at
+    ``num_groups`` ``g``, card against CPU: (near-tie tokens, routing
+    entries that differ, groups with a near tie, {side: aux}). A token
+    whose CPU gap between its k-th and (k+1)-th probability is below
+    ``LM_MOE_NEAR_TIE`` may route apart: the other tokens' top-k experts
+    are compared, and the ranks and keep of every group without one."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import routing_margin
+    routes = {"card": [], "cpu": []}
+    aux = {}
+    for name, model, d in (("card", card, dev), ("cpu", host, "cpu")):
+        hooks = _moe_hooks(model, lambda mod, r, la, name=name:
+                           routes[name].append((r, la.cpu())))
+        try:
+            with torch.no_grad():
+                _, _, a = M.forward(model, {"tokens": tokens.to(d)},
+                                    num_groups=g)
+        finally:
+            for h in hooks:
+                h.remove()
+        aux[name] = float(a)
+    near, differ, groups_with_near = 0, 0, 0
+    for (rc, _), (rh, la) in zip(routes["card"], routes["cpu"]):
+        tie = routing_margin(la, cfg.moe.top_k) < LM_MOE_NEAR_TIE
+        near += int(tie.sum())
+        both = rc.keep.cpu() & rh.keep
+        top_c = torch.where(both, rc.e_idx.cpu(), -1)
+        top_h = torch.where(both, rh.e_idx, -1)
+        differ += int((top_c != top_h).any(-1)[~tie].sum())
+        for gi in range(tie.shape[0]):
+            if bool(tie[gi].any()):
+                groups_with_near += 1
+                continue
+            for f in ("e_idx", "r_idx", "keep"):
+                differ += int((getattr(rc, f)[gi].cpu()
+                               != getattr(rh, f)[gi]).sum())
+    return near, differ, groups_with_near, aux
+
+
 def lm_moe_cuda_equals_cpu(dev) -> dict:
     """deepseek-v2-236b and arctic-480b ``reduced`` to 2 layers, d_model
     1024, 64 experts (top-2), vocab 8192, in float32 with TF32 off, the
@@ -3413,7 +3493,6 @@ def lm_moe_cuda_equals_cpu(dev) -> dict:
     from repro_torch import random as prng
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import model as M
-    from repro_torch.models.moe import routing_margin
     t_phase = time.perf_counter()
     e = LM_MOE_EQ
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -3437,44 +3516,15 @@ def lm_moe_cuda_equals_cpu(dev) -> dict:
                 for k in ("tokens", "labels")}
             per_groups = {}
             for g in e["groups"]:
-                routes = {"card": [], "cpu": []}
-                aux = {}
-                for name, model, d in (("card", card, dev),
-                                       ("cpu", host, "cpu")):
-                    hooks = _moe_hooks(model, lambda mod, r, la, name=name:
-                                       routes[name].append((r, la.cpu())))
-                    try:
-                        with torch.no_grad():
-                            _, _, a = M.forward(model, {
-                                "tokens": batch["tokens"].to(d)},
-                                num_groups=g)
-                    finally:
-                        for h in hooks:
-                            h.remove()
-                    aux[name] = float(a)
-                near, differ, groups_with_near = 0, 0, 0
-                for (rc, _), (rh, la) in zip(routes["card"],
-                                              routes["cpu"]):
-                    tie = routing_margin(la, cfg.moe.top_k) \
-                        < LM_MOE_NEAR_TIE
-                    near += int(tie.sum())
-                    both = rc.keep.cpu() & rh.keep
-                    top_c = torch.where(both, rc.e_idx.cpu(), -1)
-                    top_h = torch.where(both, rh.e_idx, -1)
-                    differ += int((top_c != top_h).any(-1)[~tie].sum())
-                    for gi in range(tie.shape[0]):
-                        if bool(tie[gi].any()):
-                            groups_with_near += 1
-                            continue
-                        for f in ("e_idx", "r_idx", "keep"):
-                            differ += int((getattr(rc, f)[gi].cpu()
-                                           != getattr(rh, f)[gi]).sum())
+                near, differ, groups_with_near, aux = _routing_agreement(
+                    card, host, cfg, batch["tokens"], dev, g)
                 aux_rel = abs(aux["card"] - aux["cpu"]) / abs(aux["cpu"])
                 require(differ == 0 and aux_rel <= LM_EQ_LOSS_RTOL,
                         f"lm_moe_cuda_equals_cpu {arch} groups {g}: "
                         f"{differ} routing entries differ, aux {aux}")
                 gaps, unresolved, bound = _train_steps(
-                    card, host, p_host, batch, dev, num_groups=g)
+                    card, host, p_host, batch, dev, num_groups=g,
+                    n_steps=e["steps"])
                 require(_train_gaps_hold(gaps),
                         f"lm_moe_cuda_equals_cpu {arch} groups {g}: {gaps}")
                 per_groups[g] = dict(
@@ -3503,11 +3553,527 @@ def lm_moe_cuda_equals_cpu(dev) -> dict:
                             top_k=cfg.moe.top_k,
                             attention=cfg.attention.kind),
                 params=sum(v.numel() for v in p_host.values()),
-                batch=[e["batch"], e["seq"]], steps=2,
+                batch=[e["batch"], e["seq"]], steps=e["steps"],
                 by_num_groups={str(k): v for k, v in per_groups.items()},
                 decode_logits_of_max=logit_gap,
                 prefill_vs_decode_max_abs=consist, greedy_equal=True,
                 seconds=time.perf_counter() - t_arch)
+            del card, host, p_card, p_host
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["tolerances"] = dict(loss_rtol=LM_EQ_LOSS_RTOL,
+                             leaf_tol=LM_EQ_LEAF_TOL,
+                             logits_tol=LM_EQ_LOGITS_TOL,
+                             consistency=LM_EQ_CONSISTENCY,
+                             unresolved=LM_EQ_UNRESOLVED,
+                             near_tie=LM_MOE_NEAR_TIE)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- the recurrent families (models/ssm.py) ------------------------------
+
+# lm_ssm_train_full: xlstm-125m at full size (configs/xlstm_125m.py: 9
+# mLSTM and 3 sLSTM layers) trained as lm_train_full trains olmo-1b,
+# float32 masters, bf16 compute, remat per block: 2 steps, the second
+# traced (a step takes ~20 s: its ~7·10^5 kernels are issued one eager op
+# at a time, and reading its trace takes ~30 s more)
+LM_SSM_TRAIN = dict(arch="xlstm-125m", batch=8, seq=2048, steps=2, lr=3e-4,
+                    warmup_steps=1)
+# lm_ssm_serve_full, bf16: xlstm-125m at full size (prefill, a cache
+# filled by decode over the prompts, greedy steps) and jamba-v0.1-52b at
+# full width on one period of 8 of its 32 layers (prefill, a cache
+# filled by `fill` steps at the decode batch, greedy steps); the mamba
+# block's kernels per token are read here (xlstm's blocks' in training)
+LM_SSM_SERVE = (
+    ("xlstm-125m", dict(layers=None, prompts=64, prompt_len=512,
+                        max_seq=1024, decode_batch=64, fill=512,
+                        new_tokens=64, kernels_per_token=())),
+    ("jamba-v0.1-52b", dict(layers=8, prompts=16, prompt_len=512,
+                            max_seq=1024, decode_batch=64, fill=16,
+                            new_tokens=32, kernels_per_token=("mamba",))))
+# lm_ssm_cuda_equals_cpu, float32, TF32 off: xlstm-125m at full width on
+# one period (4 layers) on 2 × 512 tokens (two 256-token chunks), jamba
+# reduced to one period at d_model 1024 with 4 experts on 2 × 64
+LM_SSM_EQ = dict(xlstm=dict(layers=4, seq=512),
+                 jamba=dict(layers=8, d_model=1024, vocab=8192, experts=4,
+                            seq=64))
+# the sequence lengths whose kernel counts give a block's kernels per
+# token (their difference over the tokens between them); the chunkwise
+# mLSTM's are one and two chunks
+KERNELS_PER_TOKEN_SEQ = (64, 128)
+
+
+def block_kernels_per_token(blocks: dict, batch: int, dtype, dev,
+                            train: bool) -> dict:
+    """For each named ``Block``: device kernels per token of its
+    full-sequence forward (and, with ``train``, of a forward and its
+    backward), read as the difference between two sequence lengths over
+    the tokens between them (``KERNELS_PER_TOKEN_SEQ``; one and two
+    chunks for the chunkwise mLSTM), and of one decode step from its zero
+    state."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for name, blk in blocks.items():
+        s0, s1 = KERNELS_PER_TOKEN_SEQ
+        if blk.spec.kind == "mlstm" and blk.cfg.ssm.chunked:
+            s0, s1 = blk.cfg.ssm.chunk_size, 2 * blk.cfg.ssm.chunk_size
+        d = blk.cfg.d_model
+        xs = {S: torch.randn((batch, S, d), device=dev).to(dtype)
+              for S in (s0, s1)}
+
+        def fwd(S):
+            with torch.no_grad():
+                blk(xs[S], None)
+
+        def fwd_bwd(S):
+            x = xs[S].detach().requires_grad_()
+            y, _ = blk(x, None)
+            torch.autograd.grad(y.float().sum(), [x] + [
+                p for p in blk.parameters() if p.requires_grad])
+
+        row = {}
+        for label, fn in (("forward", fwd),) + ((("forward_backward",
+                                                  fwd_bwd),) if train
+                                                else ()):
+            fn(s0)                                   # warm-up
+            k = [len(trace_kernels(lambda S=S: fn(S))[0]) for S in (s0, s1)]
+            row[label] = (k[1] - k[0]) / (s1 - s0)
+        state = tfm.init_layer_cache(blk.cfg, blk.spec, batch, 16, dtype,
+                                     dev)
+        x1 = xs[s0][:, :1]
+        with torch.no_grad():
+            blk.decode(x1, state, None, None)
+            row["decode_step"] = len(trace_kernels(
+                lambda: blk.decode(x1, state, None, None))[0])
+        out[name] = row
+    return out
+
+
+def lm_ssm_train_full(engine, args, dev) -> dict:
+    """xlstm-125m at full size (12 layers: 9 mLSTM in the chunkwise form,
+    3 sLSTM; d_model 768) trained as ``lm_train_full`` trains olmo-1b:
+    each step samples 2^14 walks × 80 from nodes on the main path's final
+    window (fused path), packs them into 8 × 2048 tokens and takes one
+    ``make_train_step`` step (float32 masters, bf16 compute, remat per
+    block, AdamW lr 3e-4, warmup 1), ``LM_SSM_TRAIN["steps"]`` steps, the
+    last traced. Per step: ms (CUDA events, packing apart; the traced
+    step's by the host clock inside its trace), tokens/s, model FLOP/s as
+    a share of the bf16 peak, host syncs (untraced steps: required 0),
+    loss (required finite); the traced step's kernels and idle share; the
+    kernels per token of each block kind; peak memory."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = get_config(LM_SSM_TRAIN["arch"])
+    t0 = time.perf_counter()
+    model = M.init_params(mcfg, prng.PRNGKey(20), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_steps = LM_SSM_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=LM_SSM_TRAIN["lr"],
+                          warmup_steps=LM_SSM_TRAIN["warmup_steps"],
+                          total_steps=n_steps)
+    step = make_train_step(model, opt_cfg)
+    params = M.params_of(model)
+    opt = init_opt_state(params, opt_cfg)
+    n_params = M.count_params_analytic(mcfg)
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    B, S = LM_SSM_TRAIN["batch"], LM_SSM_TRAIN["seq"]
+    rows = []
+    runtime.reset_launches()
+    for s in range(n_steps):
+        walks = engine.sample_walks(wcfg)
+        t0 = time.perf_counter()
+        nodes, lengths = walks.nodes.cpu().numpy(), walks.lengths.cpu().numpy()
+        toks, labels = walks_to_lm_batch(nodes, lengths, S, B,
+                                         mcfg.vocab_size, seed=400 + s)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        if s == n_steps - 1:
+            # the device activity alone: the host ops of a step's ~7·10^5
+            # kernels would double the trace
+            res = []
+            t0 = time.perf_counter()
+            step_profile = kernel_reading(*trace_kernels(
+                lambda: res.append(step(params, opt, batch))))
+            step_profile["seconds"] = time.perf_counter() - t0
+            (params, opt, metrics), syncs, sites = res[0], None, None
+            ms = step_profile["traced_wall_ms"]
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            (params, opt, metrics), syncs, sites = count_syncs(
+                lambda: step(params, opt, batch))
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        tok_s = B * S / (ms / 1e3)
+        rows.append(dict(step=s, ms=ms, traced=syncs is None,
+                         pack_ms=pack_ms, tokens_per_s=tok_s,
+                         model_flops_share=6 * n_params * tok_s
+                         / BF16_PEAK_FLOPS,
+                         host_syncs=syncs, host_sync_sites=sites,
+                         loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"])))
+    launches = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows]
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"lm_ssm_train_full: losses {losses}, grad norms {norms}")
+    require(all(r["host_syncs"] == 0 for r in rows if not r["traced"]),
+            "lm_ssm_train_full: host syncs "
+            f"{[r['host_sync_sites'] for r in rows]}")
+    require(launches["fused_hop"] == args.length * n_steps
+            and launches["weight_prefix"] == 0,
+            f"lm_ssm_train_full: launches {launches}")
+    kinds = {}
+    for blk in tfm.blocks(model.layers):
+        kinds.setdefault(blk.spec.kind, blk)
+    t0 = time.perf_counter()
+    per_token = block_kernels_per_token(kinds, B, M.compute_dtype(mcfg),
+                                        dev, train=True)
+    per_token_s = time.perf_counter() - t0
+    out = dict(arch=mcfg.name, params=sum(p.numel() for p in params.values()),
+               params_analytic=n_params, layers=mcfg.num_layers,
+               layer_kinds={k: sum(1 for sp in tfm.layer_specs(mcfg)
+                                   if sp.kind == k) for k in kinds},
+               chunked_mlstm=mcfg.ssm.chunked, chunk=mcfg.ssm.chunk_size,
+               dtype=mcfg.dtype, remat=mcfg.remat, batch=B, seq=S,
+               walks_per_step=LM_TRAIN["walks"], steps=n_steps,
+               init_seconds=init_s, kernels_per_token_seconds=per_token_s,
+               per_step=rows, kernels_per_token=per_token,
+               kernels_per_token_batch=B,
+               first_loss=losses[0], last_loss=losses[-1],
+               launches=launches, peak_mem_gib=peak,
+               train_step_profile=step_profile,
+               phase_seconds=time.perf_counter() - t_phase)
+    del model, params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_ssm_serve_full(engine, args, dev) -> dict:
+    """xlstm-125m at full size and jamba-v0.1-52b at full width on one
+    period (8 of 32 layers: 7 mamba and 1 GQA layer with a 4,096-slot
+    ring, 4 MoE FFNs of 16 experts top-2 and 4 dense ones), each drawn
+    straight into bf16 slab by slab, each on one 2^14 × 80 walk batch of
+    the main path's final window (fused path): a prefill of ``prompts``
+    × ``prompt_len`` tokens, a decode state at ``decode_batch`` filled by
+    ``fill`` ``decode_step``s (xlstm: its prompts), then ``new_tokens``
+    greedy steps under ``set_sync_debug_mode("error")``, one traced.
+    Reads init seconds and peak (required within the parameter bytes plus
+    one slab's draw), prefill ms, decode ms a step against its byte bound
+    (the weights a step reads, the SSM states read and written, the KV
+    ring read), jamba's dropped-slot shares and the blocks' kernels per
+    token."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import KVCache
+    from repro_torch.train.train_loop import (make_prefill_step,
+                                              make_serve_step)
+    t_phase = time.perf_counter()
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaf = TL.truncated_normal(prng.PRNGKey(0), (2 * TL.INIT_SLAB,), 0.01,
+                               dev, torch.bfloat16)
+    slab_bytes = torch.cuda.max_memory_allocated() - base \
+        - leaf.numel() * leaf.element_size()
+    del leaf
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn):
+        start, end = events()
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    out = dict(slab_elements=TL.INIT_SLAB, slab_draw_bytes=slab_bytes)
+    runtime.reset_launches()
+    for i, (arch, c) in enumerate(LM_SSM_SERVE):
+        t_model = time.perf_counter()
+        walks = engine.sample_walks(wcfg)
+        nodes = walks.nodes.cpu().numpy()
+        lengths = walks.lengths.cpu().numpy()
+        del walks
+        cfg = get_config(arch)
+        if c["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=c["layers"])
+        P, L, Bd = c["prompts"], c["prompt_len"], c["decode_batch"]
+        fill, n_new = c["fill"], c["new_tokens"]
+        toks, _ = walks_to_lm_batch(nodes, lengths, L, P, cfg.vocab_size,
+                                    seed=500 + i)
+        prompts = torch.from_numpy(toks).to(dev)
+        if (Bd, fill) == (P, L):        # the cache filled by the prompts
+            dprompts = prompts
+        else:
+            toks, _ = walks_to_lm_batch(nodes, lengths, fill, Bd,
+                                        cfg.vocab_size, seed=600 + i)
+            dprompts = torch.from_numpy(toks).to(dev)
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, prng.PRNGKey(30 + i), dev,
+                              dtype=M.compute_dtype(cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        params = M.params_of(model)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        require(init_peak <= param_bytes + slab_bytes + INIT_SLACK,
+                f"lm_ssm_serve_full {arch}: init peak {init_peak} B over "
+                f"{param_bytes} B of parameters + {slab_bytes} B of a slab")
+
+        prefill = make_prefill_step(model)
+        prefill(params, {"tokens": prompts[:, :8]})          # warm-up
+        pre_logits, prefill_ms = timed(
+            lambda: prefill(params, {"tokens": prompts}))
+        moe = cfg.moe is not None
+        if moe:
+            with torch.no_grad():
+                prefill_drop, (_, _, aux) = _drop_share(
+                    model, lambda: M.forward(model, {"tokens": prompts}))
+
+        state = M.init_decode_state(model, Bd, c["max_seq"])
+
+        def fill_cache(state=state):
+            with torch.no_grad():
+                for t in range(fill):
+                    lg, state = M.decode_step(model, dprompts[:, t:t + 1],
+                                              state)
+            return lg
+        if moe:
+            (decode_drop, logits), fill_ms = timed(
+                lambda: _drop_share(model, fill_cache))
+        else:
+            logits, fill_ms = timed(fill_cache)
+        serve = make_serve_step(model)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+        def decode(tok, state):
+            toks_out = []
+            for _ in range(n_new):
+                tok, state = serve(params, tok, state)
+                toks_out.append(tok)
+            return toks_out, tok, state
+
+        (out_toks, tok, state), decode_total = timed(
+            lambda: no_host_sync(decode)(tok, state))
+        decode_ms = decode_total / n_new
+        _, syncs, sites = count_syncs(lambda: serve(params, tok, state))
+        require(syncs == 0, f"lm_ssm_serve_full {arch}: a decode step "
+                            f"synced {sites}")
+        prof = profile_call(lambda: serve(params, tok, state))
+        gen = torch.cat(out_toks, dim=1)
+        require(bool((gen >= 0).all() and (gen < cfg.vocab_size).all()),
+                f"lm_ssm_serve_full {arch}: a token is out of the vocabulary")
+        require(bool(torch.isfinite(pre_logits.float()).all())
+                and bool(torch.isfinite(logits.float()).all()),
+                f"lm_ssm_serve_full {arch}: non-finite logits")
+        emb = model.embed.table
+        elt = emb.element_size()
+        # the embedding's rows a step gathers; a tied table is read whole
+        # by the logits, an untied one's unembedding is in param_bytes
+        weight_bytes = param_bytes + Bd * cfg.d_model * elt \
+            - (0 if cfg.tie_embeddings else emb.numel() * elt)
+        kv_bytes = sum(t.numel() * t.element_size() for st in state.caches
+                       if isinstance(st, KVCache) for t in st)
+        ssm_bytes = sum(t.numel() * t.element_size() for st in state.caches
+                        if not isinstance(st, KVCache) for t in st)
+        bound_ms = (weight_bytes + kv_bytes + 2 * ssm_bytes) \
+            / HBM_BYTES_PER_S * 1e3
+        kinds = {}
+        for blk in tfm.blocks(model.layers):
+            if blk.spec.kind in c["kernels_per_token"]:
+                kinds.setdefault(blk.spec.kind, blk)
+        per_token = block_kernels_per_token(kinds, P, M.compute_dtype(cfg),
+                                            dev, train=False)
+        row = dict(
+            layers=cfg.num_layers, dtype=cfg.dtype,
+            layer_kinds={k: sum(1 for sp in tfm.layer_specs(cfg)
+                                if sp.kind == k)
+                         for k in ("attn", "mamba", "mlstm", "slstm")},
+            params=sum(p.numel() for p in params.values()),
+            params_analytic=M.count_params_analytic(cfg),
+            param_gib=param_bytes / 2**30, init_seconds=init_s,
+            init_peak_gib=init_peak / 2**30,
+            init_over_params_gib=(init_peak - param_bytes) / 2**30,
+            init_allowance_gib=(param_bytes + slab_bytes + INIT_SLACK)
+            / 2**30,
+            prompts=P, prompt_len=L, prefill_ms=prefill_ms,
+            prefill_tokens_per_s=P * L / (prefill_ms / 1e3),
+            decode_batch=Bd, max_seq=c["max_seq"], cache_fill=fill,
+            cache_fill_ms_per_step=fill_ms / fill,
+            prefill_vs_decode_max_abs=float(
+                (logits.float() - pre_logits.float()).abs().max())
+            if dprompts is prompts else None,
+            new_tokens=n_new, decode_ms_per_step=decode_ms,
+            decode_tokens_per_s=Bd / (decode_ms / 1e3),
+            decode_bound_ms=bound_ms, decode_bound_by="bytes",
+            decode_weight_bytes=weight_bytes, decode_kv_bytes=kv_bytes,
+            decode_ssm_state_bytes=ssm_bytes,
+            host_syncs_per_decode_step=syncs, decode_step_profile=prof,
+            kernels_per_token=per_token, final_pos=int(state.pos),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_over_window_gib=(torch.cuda.max_memory_allocated() - base)
+            / 2**30, window_gib=base / 2**30,
+            seconds=time.perf_counter() - t_model)
+        if moe:
+            row.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                       prefill_dropped_share=prefill_drop,
+                       decode_dropped_share=decode_drop, aux_loss=float(aux))
+        out[arch] = row
+        del model, params, state, prefill, serve, pre_logits, logits, tok
+        del out_toks, gen, prompts, dprompts
+        torch.cuda.empty_cache()
+    launches = dict(runtime.LAUNCHES)
+    require(launches["fused_hop"] == args.length * len(LM_SSM_SERVE)
+            and launches["weight_prefix"] == 0
+            and launches["walk_step_tiled"] == 0,
+            f"lm_ssm_serve_full: launches {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def lm_ssm_cuda_equals_cpu(dev) -> dict:
+    """xlstm-125m at full width on one period (4 layers, 2 × 512 tokens:
+    two 256-token chunks) and jamba-v0.1-52b reduced to one period (8
+    layers, d_model 1024, 4 experts, 2 × 64 tokens), float32, TF32 off,
+    the same parameters on the card and the CPU: jamba's routing on the
+    first forward equal but for near ties (``_routing_agreement``); one
+    train step from a shared state at ``lm_cuda_equals_cpu``'s
+    tolerances; 8 decode steps' logits within ``LM_EQ_LOGITS_TOL``,
+    prefill vs decode on the card within ``LM_EQ_CONSISTENCY``, 4 greedy
+    tokens equal; xlstm's chunkwise mLSTM against its sequential form on
+    the card, read."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    e = LM_SSM_EQ
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for arch in ("xlstm-125m", "jamba-v0.1-52b"):
+            t_arch = time.perf_counter()
+            if arch.startswith("xlstm"):
+                x = e["xlstm"]
+                cfg = dataclasses.replace(get_config(arch),
+                                          num_layers=x["layers"],
+                                          dtype="float32")
+            else:
+                x = e["jamba"]
+                cfg = dataclasses.replace(
+                    reduced(get_config(arch), layers=x["layers"],
+                            d_model=x["d_model"], vocab=x["vocab"],
+                            experts=x["experts"]), dtype="float32")
+            card = M.init_params(cfg, prng.PRNGKey(5), dev)
+            host = M.TransformerLM(cfg, None, "cpu")
+            p_card = M.params_of(card)
+            p_host = {n: t.cpu() for n, t in p_card.items()}
+            M.bind_params(host, p_host)
+            rng = np.random.default_rng(7)
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, x["seq"])).astype(np.int32))
+                for k in ("tokens", "labels")}
+            row = dict(config=dict(layers=cfg.num_layers,
+                                   d_model=cfg.d_model,
+                                   vocab=cfg.vocab_size,
+                                   kinds=[s.kind for s in
+                                          M.tfm.layer_specs(cfg)]),
+                       params=sum(v.numel() for v in p_host.values()),
+                       batch=[2, x["seq"]])
+            if cfg.moe is not None:
+                near, differ, groups_with_near, aux = _routing_agreement(
+                    card, host, cfg, batch["tokens"], dev, 1)
+                aux_rel = abs(aux["card"] - aux["cpu"]) / abs(aux["cpu"])
+                require(differ == 0 and aux_rel <= LM_EQ_LOSS_RTOL,
+                        f"lm_ssm_cuda_equals_cpu {arch}: {differ} routing "
+                        f"entries differ, aux {aux}")
+                row.update(near_tie_tokens=near,
+                           groups_with_near_ties=groups_with_near,
+                           routing_entries_differ=0, aux_rel=aux_rel)
+            gaps, unresolved, bound = _train_steps(card, host, p_host, batch,
+                                                   dev, n_steps=1,
+                                                   zero_leaves=True)
+            require(_train_gaps_hold(gaps),
+                    f"lm_ssm_cuda_equals_cpu {arch}: {gaps}")
+            logit_gap, consist, consist_ok, greedy_equal = _decode_card_cpu(
+                card, host, p_card, p_host, batch["tokens"], dev)
+            require(logit_gap <= LM_EQ_LOGITS_TOL and consist_ok
+                    and greedy_equal,
+                    f"lm_ssm_cuda_equals_cpu {arch}: logits {logit_gap}, "
+                    f"prefill/decode {consist}, greedy {greedy_equal}")
+            row.update(
+                steps=1, of_leaf_max={k: gaps[k] for k in (
+                    "grads", "mu", "nu", "params", "params_given_card_grads",
+                    "zero_leaf_params")},
+                worst_leaf=gaps["worst_leaf"],
+                loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
+                unresolved_elements=unresolved,
+                unresolved_max_of_step_bound=gaps["unresolved_max_abs"],
+                step_bound=bound, decode_logits_of_max=logit_gap,
+                prefill_vs_decode_max_abs=consist, greedy_equal=True)
+            if cfg.ssm.chunked and "mlstm" in cfg.layer_pattern:
+                seq_cfg = dataclasses.replace(
+                    cfg, ssm=dataclasses.replace(cfg.ssm, chunked=False))
+                seq_model = M.TransformerLM(seq_cfg, None, dev)
+                M.bind_params(card, p_card)
+                M.bind_params(seq_model, p_card)
+                tokens = batch["tokens"].to(dev)
+                with torch.no_grad():
+                    lc = M.logits_from_hidden(
+                        card, M.forward(card, {"tokens": tokens})[0])
+                    ls = M.logits_from_hidden(
+                        seq_model, M.forward(seq_model,
+                                             {"tokens": tokens})[0])
+                row["chunked_vs_sequential_of_max"] = float(
+                    (lc - ls).abs().max() / ls.abs().max())
+                del seq_model, lc, ls
+            row["seconds"] = time.perf_counter() - t_arch
+            out[arch] = row
             del card, host, p_card, p_host
             torch.cuda.empty_cache()
     finally:
@@ -3568,9 +4134,11 @@ def main(argv=None) -> int:
 
     # ---- data (not timed as part of the replay) --------------------------
     t0 = time.perf_counter()
+    # the draws on the host, the inverse-CDF lookups and the sort by time
+    # on the card: the same graph bit for bit
     g = powerlaw_temporal_graph(
         args.nodes, args.edges_per_batch * args.batches, skew=1.2,
-        t_max=10_000_000, seed=0)
+        t_max=10_000_000, seed=0, device=dev)
     batches = list(chronological_batches(g, args.batches))
     emit("data", seconds=time.perf_counter() - t0, nodes=args.nodes,
          edges=int(g.src.shape[0]), batches=args.batches, cuts=cuts)
@@ -3787,10 +4355,14 @@ def main(argv=None) -> int:
                                                      regroup="bucket"))
     engine = StreamingEngine(cfg_tab, B)
     spec = engine._table
+    # the stream's first TABLE_BATCHES batches: the window fills after
+    # 12, so the last ones evict and their tables are maintained
+    K_tab = min(TABLE_BATCHES, K)
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     (stats, walks, secs), tab_syncs, tab_sites = count_syncs(
-        lambda: engine.replay_device(batches, wcfg, return_walks=True))
+        lambda: engine.replay_device(batches[:K_tab], wcfg,
+                                     return_walks=True))
     launches_tab = dict(runtime.LAUNCHES)
     hops_done = float(np.sum(args.walks * (stats.mean_len.astype(np.float64)
                                            - 1.0)))
@@ -3800,12 +4372,12 @@ def main(argv=None) -> int:
     del walks
     require(rep.num_hops > 0 and rep.hop_valid_frac == 1.0,
             f"table path: hop validity {rep.hop_valid_frac}")
-    require(launches_tab["weight_prefix"] == 2 * K
+    require(launches_tab["weight_prefix"] == 2 * K_tab
             and launches_tab["fused_hop"] == 0
             and launches_tab["walk_step_tiled"] == 0,
             f"table path: launches {launches_tab}")
     # the table build reads one count per ingest
-    require(tab_syncs == main_syncs + K,
+    require(tab_syncs == main_syncs + K_tab,
             f"table path: {tab_syncs} host syncs ({tab_sites}) against the "
             f"main path's {main_syncs} + one per batch")
     tables = engine.state.tables
@@ -3817,20 +4389,22 @@ def main(argv=None) -> int:
     masses = check_row_masses(engine.state.index, tables, spec)
     rebuilt = int(tables.rebuilt)
     state_before = engine.state
-    emit("table_path", seconds=secs, batches=K, walks_per_batch=args.walks,
+    emit("table_path", seconds=secs, batches=K_tab,
+         walks_per_batch=args.walks,
          max_length=args.length, path="grouped",
          weight="exponential", radix=spec.radix, degree_cap=spec.degree_cap,
          edges_per_s=int(stats.ingested[-1]) / secs,
-         walks_per_s=K * args.walks / secs, hops_per_s=hops_done / secs,
+         walks_per_s=K_tab * args.walks / secs, hops_per_s=hops_done / secs,
          hop_valid_frac=rep.hop_valid_frac, num_hops_checked=rep.num_hops,
          host_syncs=tab_syncs, host_sync_sites=tab_sites,
          launches=launches_tab,
-         rebuilt_nodes_total=rebuilt, rebuilt_nodes_per_batch=rebuilt / K,
+         rebuilt_nodes_total=rebuilt,
+         rebuilt_nodes_per_batch=rebuilt / K_tab,
          incremental_equals_build=True, row_masses=masses,
          mean_len=stats.mean_len.tolist(),
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, cuts=cuts)
     emit("table_path_ingest", **ingest_readings(
-        state_before, batches[-1], args.nodes, spec))
+        state_before, batches[min(K_tab, K - 1)], args.nodes, spec))
     del state_before
 
     # ---- phase 3c: node2vec at full width on the table path's window ------
@@ -3975,10 +4549,17 @@ def main(argv=None) -> int:
 
     # ---- phase 12: the MoE family (MLA, routed experts) -----------------
     lm_moe = lm_moe_serve_full(lm_engine, args, dev)
-    del lm_engine
-    torch.cuda.empty_cache()
     emit("lm_moe_serve_full", **lm_moe)
     emit("lm_moe_cuda_equals_cpu", **lm_moe_cuda_equals_cpu(dev))
+
+    # ---- phase 13: the recurrent families (mamba, mLSTM, sLSTM) ---------
+    lm_ssm_train = lm_ssm_train_full(lm_engine, args, dev)
+    emit("lm_ssm_train_full", **lm_ssm_train, cuts=cuts)
+    lm_ssm_serve = lm_ssm_serve_full(lm_engine, args, dev)
+    del lm_engine
+    torch.cuda.empty_cache()
+    emit("lm_ssm_serve_full", **lm_ssm_serve)
+    emit("lm_ssm_cuda_equals_cpu", **lm_ssm_cuda_equals_cpu(dev))
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -3999,6 +4580,8 @@ def main(argv=None) -> int:
              train_embeddings_launches=train["launches"]["fused_hop"],
              lm_train_launches=lm_train["launches"]["fused_hop"],
              lm_moe_serve_launches=lm_moe["launches"]["fused_hop"],
+             lm_ssm_train_launches=lm_ssm_train["launches"]["fused_hop"],
+             lm_ssm_serve_launches=lm_ssm_serve["launches"]["fused_hop"],
              **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
@@ -4017,6 +4600,9 @@ def main(argv=None) -> int:
              train_embeddings_launches=train["launches"]["weight_prefix"],
              lm_train_launches=lm_train["launches"]["weight_prefix"],
              lm_moe_serve_launches=lm_moe["launches"]["weight_prefix"],
+             lm_ssm_train_launches=lm_ssm_train["launches"]["weight_prefix"],
+             lm_ssm_serve_launches=lm_ssm_serve["launches"][
+                 "weight_prefix"],
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]
                  for r in ckpt["runs"]],

@@ -289,35 +289,43 @@ def lm_opt_state_to_ref(state: OptState, cfg) -> OptState:
                     else lm_tree_to_ref(state.error, cfg))
 
 
-def decode_state_from_ref(state, cfg, device=None):
+def decode_state_from_ref(state, cfg, device=None, pos: int = 0):
     """The port's ``DecodeState`` from the reference's: per-segment caches
-    stacked over periods become one cache per layer and one position
-    (every layer's is the same). ``KVCache`` ``k``/``v`` ``[n_periods, B,
-    S_max, Hkv, D]`` go to ``[B, Hkv, S_max, D]``; ``MLACache``
-    ``c_kv``/``k_rope`` ``[n_periods, B, S_max, ·]`` keep their layout."""
+    and states stacked over periods become one per layer, and one
+    position. ``KVCache`` ``k``/``v`` ``[n_periods, B, S_max, Hkv, D]`` go
+    to ``[B, Hkv, S_max, D]``; ``MLACache`` ``c_kv``/``k_rope`` and the
+    SSM states (``MambaState`` ``h [n_periods, B, di, N]``, ``conv``;
+    ``MLSTMState`` ``C``, ``n``, ``m``; ``SLSTMState`` ``c``, ``n``,
+    ``h``, ``m``) keep their layout. The position is the attention
+    caches' (every layer's is the same); a model without attention
+    tracks none in the reference, so it is ``pos``."""
     from repro_torch.models.attention import KVCache, MLACache
     from repro_torch.models.model import DecodeState
+    from repro_torch.models.ssm import MambaState, MLSTMState, SLSTMState
     from repro_torch.models.transformer import build_segments
     device = resolve_device(device)
-    mla = cfg.attention.kind == "mla"
+    states = {"mamba": MambaState, "mlstm": MLSTMState, "slstm": SLSTMState,
+              "attn": MLACache if cfg.attention.kind == "mla" else KVCache}
     caches, positions = [], []
     for si, seg in enumerate(build_segments(cfg)):
         seg_state = _get(state, "caches")[si]
         for p in range(seg.n_periods):
-            for j in range(len(seg.period)):
+            for j, spec in enumerate(seg.period):
                 c = seg_state[f"pos{j}"]
-                if mla:
-                    caches.append(MLACache(*(
+                kind = states[spec.kind]
+                if kind is not KVCache:
+                    caches.append(kind(*(
                         _torch_from_array(np.asarray(_get(c, f))[p], device)
-                        for f in MLACache._fields)))
+                        for f in kind._fields)))
                 else:
                     k, v = (_torch_from_array(np.asarray(_get(c, f))[p],
                                               device)
                             .permute(0, 2, 1, 3).contiguous() for f in "kv")
                     caches.append(KVCache(k=k, v=v))
-                positions.append(int(np.asarray(_get(c, "pos"))[p]))
-    if len(set(positions)) != 1:
+                if spec.kind == "attn":
+                    positions.append(int(np.asarray(_get(c, "pos"))[p]))
+    if len(set(positions)) > 1:
         raise ValueError(f"layers at different positions: {positions}")
     return DecodeState(caches=caches,
-                       pos=torch.tensor(positions[0], dtype=torch.int32,
-                                        device=device))
+                       pos=torch.tensor(positions[0] if positions else pos,
+                                        dtype=torch.int32, device=device))

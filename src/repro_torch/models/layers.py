@@ -72,6 +72,14 @@ def scalar_like(value: float, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm in float32 with a float32 ``scale``, cast back."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
 class Norm(nn.Module):
     """rmsnorm (``scale``), layernorm (``scale``, ``bias``) or
     nonparametric_ln (OLMo: no learned affine), computed in float32 and
@@ -88,16 +96,14 @@ class Norm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
         if self.kind == "rmsnorm":
-            var = torch.mean(xf * xf, dim=-1, keepdim=True)
-            y = xf * torch.rsqrt(var + self.eps) * self.scale
-        else:
-            mu = torch.mean(xf, dim=-1, keepdim=True)
-            var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-            y = (xf - mu) * torch.rsqrt(var + self.eps)
-            if self.kind == "layernorm":
-                y = y * self.scale + self.bias
+            return rmsnorm(x, self.scale, self.eps)
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        if self.kind == "layernorm":
+            y = y * self.scale + self.bias
         return y.to(x.dtype)
 
 

@@ -1,6 +1,8 @@
 """Top-level model API, PyTorch port of repro/models/model.py, for
-``family="dense"`` and ``"moe"`` (MoE FFNs, MLA or GQA attention; the
-other families: ROADMAP queue 1 items 5c–5d).
+``family="dense"``, ``"moe"`` (MoE FFNs, MLA or GQA attention),
+``"ssm"`` (xLSTM's mLSTM and sLSTM) and ``"hybrid"`` (mamba and
+attention, dense and MoE FFNs; Jamba). The enc-dec and VLM families wait
+for ROADMAP queue 1 item 5d.
 
 * ``init_params(cfg, key, device)``      — a ``TransformerLM`` (float32
   masters, drawn with the reference's threefry keys; ``dtype=`` stores
@@ -9,8 +11,8 @@ other families: ROADMAP queue 1 items 5c–5d).
   and the MoE aux loss
 * ``loss_fn(model, batch)``              — sequence-chunked cross-entropy
   plus the aux loss
-* ``init_decode_state(model, B, S)``     — KV or latent caches and the
-  position
+* ``init_decode_state(model, B, S)``     — KV or latent caches, SSM
+  states and the position
 * ``decode_step(model, tokens, state)``  — one-token serve step
 
 ``forward``, ``loss_fn`` and ``decode_step`` take the reference's
@@ -217,7 +219,7 @@ def loss_fn(model: TransformerLM, batch, *, num_groups: int = 1):
 
 
 class DecodeState(NamedTuple):
-    caches: List[LayerCache]  # one per layer, in layer order
+    caches: List[LayerCache]  # one cache or SSM state per layer, in order
     pos: torch.Tensor       # int32, 0-d: tokens already written
 
 
@@ -233,10 +235,10 @@ def init_decode_state(model: TransformerLM, batch: int,
 
 def decode_step(model: TransformerLM, tokens, state: DecodeState, *,
                 num_groups: int = 1):
-    """tokens: [B, 1]. Returns (logits [B, 1, V], state): the caches are
-    written and ``pos`` advanced in place, on the device, so the step
-    reads nothing back to the host. Every layer sits at the same
-    position, so the rotation tables are computed once a step."""
+    """tokens: [B, 1]. Returns (logits [B, 1, V], state): the caches and
+    SSM states are written and ``pos`` advanced in place, on the device,
+    so the step reads nothing back to the host. Every layer sits at the
+    same position, so the rotation tables are computed once a step."""
     cfg = model.cfg
     dtype = compute_dtype(cfg)
     B = tokens.shape[0]

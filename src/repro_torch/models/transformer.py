@@ -9,11 +9,11 @@ parameters over periods (``layers[si]["pos{j}"]``, leaves
 ``ModuleDict`` of ``Block``s (``layers[si][period]["pos{j}"]``), run in
 a Python loop. ``repro_torch.interop`` unstacks and restacks.
 
-The port builds ``kind="attn"`` layers (GQA or MLA) with ``ffn``
-dense, moe or none; a stack's forward returns the MoE layers' aux loss
-summed in layer order. Mamba, mLSTM and sLSTM layers, cross-attention
-and M-RoPE raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The port builds every layer kind: ``attn`` (GQA or MLA), ``mamba``,
+``mlstm`` and ``slstm`` (``models/ssm.py``), with ``ffn`` dense, moe or
+none; a stack's forward returns the MoE layers' aux loss summed in layer
+order. Cross-attention and M-RoPE raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -31,8 +31,10 @@ from repro_torch.models.attention import (DecodeSlot, KVCache, MLACache,
                                           make_attention)
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import (SSM_BLOCKS, SSM_INIT_STATE, MambaState,
+                                    MLSTMState, SLSTMState)
 
-LayerCache = Union[KVCache, MLACache]
+LayerCache = Union[KVCache, MLACache, MambaState, MLSTMState, SLSTMState]
 
 
 class LayerSpec(NamedTuple):
@@ -85,9 +87,9 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port does not build yet, naming the ROADMAP item:
-    enc-dec cross-attention, VLM inputs and M-RoPE (item 5d), and mamba,
-    mLSTM and sLSTM layers (item 5c). Attention layers of either kind
-    (GQA, MLA) with dense, MoE or no FFN are built."""
+    enc-dec cross-attention, VLM inputs and M-RoPE (item 5d). Attention
+    layers of either kind (GQA, MLA) and mamba, mLSTM and sLSTM layers,
+    with dense, MoE or no FFN, are built."""
     if cfg.family == "enc_dec":
         raise NotImplementedError(
             "cross-attention (enc-dec) is not ported yet: ROADMAP queue 1 "
@@ -97,10 +99,8 @@ def check_supported(cfg: ModelConfig) -> None:
             "VLM inputs and M-RoPE positions are not ported yet: ROADMAP "
             "queue 1 item 5d")
     for spec in layer_specs(cfg):
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{spec.kind} layers are not ported yet: ROADMAP queue 1 "
-                "item 5c")
+        if spec.kind != "attn" and spec.kind not in SSM_BLOCKS:
+            raise ValueError(f"unknown layer kind {spec.kind!r}")
     if cfg.attention.kind not in ("gqa", "mla"):
         raise ValueError(
             f"unknown attention kind {cfg.attention.kind!r}")
@@ -115,11 +115,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """Pre-norm attention and FFN with residuals: ``norm1``, ``attn``
-    (``Attention`` or ``MLA`` by ``cfg.attention.kind``), and with
-    ``ffn="dense"`` ``norm2`` and ``mlp``, with ``ffn="moe"`` ``norm2``
-    and ``moe``. ``dtype`` stores the drawn matrices (norms stay
-    float32)."""
+    """Pre-norm mixer and FFN with residuals: ``norm1``, the mixer named
+    by its kind as the reference names it (``attn``: ``Attention`` or
+    ``MLA`` by ``cfg.attention.kind``; ``mamba``, ``mlstm``, ``slstm``),
+    and with ``ffn="dense"`` ``norm2`` and ``mlp``, with ``ffn="moe"``
+    ``norm2`` and ``moe``. ``dtype`` stores the drawn matrices (norms
+    and the SSM blocks' ``keep_float32`` leaves stay float32)."""
 
     def __init__(self, key, cfg: ModelConfig, spec: LayerSpec, device=None,
                  dtype=torch.float32):
@@ -127,8 +128,12 @@ class Block(nn.Module):
         ks = prng.split(key, 6) if key is not None else [None] * 6
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg.norm, cfg.d_model, device)
-        self.attn = make_attention(ks[0], cfg.attention, cfg.d_model, device,
-                                   dtype)
+        if spec.kind == "attn":
+            self.attn = make_attention(ks[0], cfg.attention, cfg.d_model,
+                                       device, dtype)
+        else:
+            setattr(self, spec.kind, SSM_BLOCKS[spec.kind](
+                ks[0], cfg, cfg.ssm, device, dtype))
         if spec.ffn == "dense":
             self.norm2 = Norm(cfg.norm, cfg.d_model, device)
             self.mlp = MLP(ks[2], cfg.d_model, cfg.d_ff, cfg.activation,
@@ -147,15 +152,30 @@ class Block(nn.Module):
         return x, None
 
     def forward(self, x, tables, num_groups: int = 1):
-        """Returns (x, aux loss float32 0-d, or None without an MoE)."""
-        x = x + self.attn(self.norm1(x), tables, causal=True,
+        """Returns (x, aux loss float32 0-d, or None without an MoE). An
+        SSM block runs from the zero state; the mLSTM in its chunkwise
+        form when ``cfg.ssm.chunked``."""
+        h = self.norm1(x)
+        kind = self.spec.kind
+        if kind == "attn":
+            y = self.attn(h, tables, causal=True,
                           window=self.cfg.attention.window)
-        return self._ffn(x, num_groups)
+        elif kind == "mlstm":
+            y, _ = self.mlstm(h, chunked=self.cfg.ssm.chunked)
+        else:
+            y, _ = getattr(self, kind)(h)
+        return self._ffn(x + y, num_groups)
 
-    def decode(self, x, cache: LayerCache, at: DecodeSlot, tables,
+    def decode(self, x, cache: LayerCache, at: DecodeSlot | None, tables,
                num_groups: int = 1):
-        x = x + self.attn.decode(self.norm1(x), cache, at, tables)
-        return self._ffn(x, num_groups)[0]
+        """One token; ``cache`` (a KV cache or an SSM state) is written in
+        place. ``at`` is the attention layers' slot (None without one)."""
+        h = self.norm1(x)
+        if self.spec.kind == "attn":
+            y = self.attn.decode(h, cache, at, tables)
+        else:
+            y = getattr(self, self.spec.kind).decode(h, cache)
+        return self._ffn(x + y, num_groups)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -189,12 +209,21 @@ def blocks(stacks: nn.ModuleList) -> List[Block]:
             for j in range(len(period))]
 
 
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_seq: int, dtype, device=None) -> LayerCache:
+    """One layer's decode state: a KV cache (``MLACache`` for MLA) or its
+    SSM block's state."""
+    if spec.kind == "attn":
+        return init_cache(cfg.attention, batch, max_seq, dtype, device)
+    return SSM_INIT_STATE[spec.kind](cfg, cfg.ssm, batch, dtype, device)
+
+
 def init_stack_cache(cfg: ModelConfig, segments: List[Segment], batch: int,
                      max_seq: int, dtype, device=None) -> List[LayerCache]:
-    """One cache per layer, in layer order (``MLACache`` for MLA)."""
-    return [init_cache(cfg.attention, batch, max_seq, dtype, device)
+    """One cache or state per layer, in layer order."""
+    return [init_layer_cache(cfg, spec, batch, max_seq, dtype, device)
             for seg in segments for _ in range(seg.n_periods)
-            for _ in seg.period]
+            for spec in seg.period]
 
 
 def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
@@ -222,8 +251,14 @@ def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
 
 def decode_stack(stacks: nn.ModuleList, cfg: ModelConfig, x,
                  caches: List[LayerCache], pos, tables, num_groups: int = 1):
-    """One decode step through every block at position ``pos``."""
-    at = decode_slot(pos, cache_len(caches[0]), cfg.attention.window)
-    for blk, cache in zip(blocks(stacks), caches):
+    """One decode step through every block at position ``pos``. The slot
+    comes from the first attention layer's cache (every attention layer
+    has the same); a model without one computes none."""
+    blks = blocks(stacks)
+    attn = next((c for b, c in zip(blks, caches) if b.spec.kind == "attn"),
+                None)
+    at = None if attn is None \
+        else decode_slot(pos, cache_len(attn), cfg.attention.window)
+    for blk, cache in zip(blks, caches):
         x = blk.decode(x, cache, at, tables, num_groups)
     return x

@@ -889,3 +889,84 @@ def test_mla_moe_decode_card_equals_cpu_without_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(state.pos) == 9
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_ssm_block_card_equals_cpu(card, kind):
+    """A reduced recurrent block (jamba's mamba, xlstm's mLSTM and sLSTM)
+    in float32, TF32 off, card against CPU: the forward's output and
+    final state (the mLSTM in both forms, 96 tokens: three 32-token
+    chunks) within 1e-5 of the largest, then 8 one-token ``decode``
+    steps from an 88-token state, each output and state likewise; the
+    card's decode makes no host sync and writes its state in place."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import ssm
+    cfg = reduced(get_config("jamba-v0.1-52b" if kind == "mamba"
+                             else "xlstm-125m"))
+    host = ssm.SSM_BLOCKS[kind](prng.PRNGKey(3), cfg, cfg.ssm, "cpu")
+    dev_blk = ssm.SSM_BLOCKS[kind](None, cfg, cfg.ssm, card)
+    with torch.no_grad():
+        for p, q in zip(dev_blk.parameters(), host.parameters()):
+            p.copy_(q)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 96, cfg.d_model)).astype(np.float32))
+    xc = x.to(card)
+
+    def close(a, b):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for chunked in ((False, True) if kind == "mlstm" else (False,)):
+                kw = {"chunked": chunked} if kind == "mlstm" else {}
+                (yc, sc), (yh, sh) = dev_blk(xc, **kw), host(x, **kw)
+                close(yc, yh)
+                for a, b in zip(sc, sh):
+                    close(a, b)
+            _, sc = dev_blk(xc[:, :88])
+            _, sh = host(x[:, :88])
+            ptrs = [t.data_ptr() for t in sc]
+            for t in range(88, 92):
+                close(dev_blk.decode(xc[:, t:t + 1], sc),
+                      host.decode(x[:, t:t + 1], sh))
+                for a, b in zip(sc, sh):
+                    close(a, b)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ys = [dev_blk.decode(xc[:, t:t + 1], sc)
+                      for t in range(92, 96)]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for t, y in zip(range(92, 96), ys):
+                close(y, host.decode(x[:, t:t + 1], sh))
+            for a, b in zip(sc, sh):
+                close(a, b)
+            assert [t.data_ptr() for t in sc] == ptrs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_ssm_model_decode_bf16_makes_no_host_sync(card, arch):
+    """Reduced xlstm-125m and jamba (a mamba layer first, the slot taken
+    from its attention layer) served in bf16: 8 greedy steps under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import make_serve_step
+    model, batch = _lm(arch, card, dtype="bfloat16")
+    M.cast_for_serving(model)
+    p = M.params_of(model)
+    state = M.init_decode_state(model, 2, 32)
+    serve = make_serve_step(model)
+    tok = batch["tokens"][:, :1]
+    tok, state = serve(p, tok, state)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(8):
+            tok, state = serve(p, tok, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state.pos) == 9

@@ -35,7 +35,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
 ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b", "deepseek-v2-236b",
-         "arctic-480b"]
+         "arctic-480b", "xlstm-125m", "jamba-v0.1-52b"]
 MOE_ARCHS = ["deepseek-v2-236b", "arctic-480b"]
 RTOL = ATOL = 1e-5
 LEAF_TOL = 1e-4
@@ -108,7 +108,6 @@ def test_registry_lists_the_reference_archs():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("xlstm-125m", "5c"), ("jamba-v0.1-52b", "5c"),
     ("seamless-m4t-medium", "5d"), ("qwen2-vl-72b", "5d")])
 def test_unported_families_are_refused(arch, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -521,3 +520,4 @@ def test_moe_serving_cast_keeps_mla_norms_float32(ref_params):
         want = torch.float32 if n.endswith(("q_norm", "kv_norm", "scale")) \
             else torch.bfloat16
         assert p.dtype == want, n
+

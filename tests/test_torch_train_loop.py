@@ -12,6 +12,7 @@ its sign or size open) may move by up to the whole step either way, and
 is held to the step bound 2·Σ lr.
 Greedy tokens are equal. Checkpoints are bitwise.
 """
+import functools
 import os
 
 import jax
@@ -41,6 +42,7 @@ from repro_torch.train.train_loop import (make_eval_step, make_prefill_step,
 ARCHS = ["olmo-1b", "qwen2-0.5b", "phi3-medium-14b", "deepseek-v2-236b",
          "arctic-480b"]
 MOE_ARCHS = ["deepseek-v2-236b", "arctic-480b"]
+SSM_ARCHS = ["xlstm-125m", "jamba-v0.1-52b"]
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 RTOL = 1e-5
 LEAF_TOL = 1e-4
@@ -59,6 +61,14 @@ def _setup(arch, seed=0):
     rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labs)}
     tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labs)}
     return rcfg, cfg, params, rb, tb
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_step(arch, num_groups=1):
+    """The reference's jitted train step of reduced ``arch``, compiled once
+    a process."""
+    return jax.jit(ref_train_step(ref_reduced(ref_get_config(arch)),
+                                  RAdamW(**OPT), num_groups=num_groups))
 
 
 def _leaf_gap(got, want) -> float:
@@ -126,7 +136,8 @@ def test_eval_and_prefill_steps_match_reference():
                                atol=RTOL)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-0.5b"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-0.5b"] + MOE_ARCHS
+                         + SSM_ARCHS)
 def test_serve_step_matches_reference(arch):
     """12 greedy steps from a 4-token prompt: the same tokens, int32
     ``[B, 1]``."""
@@ -231,8 +242,12 @@ def test_moe_checkpoints_cross_both_ways(arch, tmp_path):
     after 2 steps at ``num_groups=2`` restores into the port bit for bit
     and continues exactly as the state carried in memory does; the
     port's save restores in the reference bit for bit."""
+    _checkpoints_cross_both_ways(arch, tmp_path)
+
+
+def _checkpoints_cross_both_ways(arch, tmp_path, num_groups=2):
     rcfg, cfg, params, rb, tb = _setup(arch, seed=5)
-    rstep = jax.jit(ref_train_step(rcfg, RAdamW(**OPT), num_groups=2))
+    rstep = _ref_step(arch, num_groups)
     p_r, o_r = params, ref_init_opt(params, RAdamW(**OPT))
     for _ in range(2):
         p_r, o_r, _ = rstep(p_r, o_r, rb)
@@ -252,7 +267,7 @@ def test_moe_checkpoints_cross_both_ways(arch, tmp_path):
     runs = []
     for p_src, o_src in ((got_p, got_o), (p_r, o_r)):
         m = interop.lm_params_from_ref(p_src, cfg, "cpu")
-        step = make_train_step(m, AdamWConfig(**OPT), num_groups=2)
+        step = make_train_step(m, AdamWConfig(**OPT), num_groups=num_groups)
         runs.append(_train(step, TM.params_of(m),
                            interop.lm_opt_state_from_ref(o_src, cfg, "cpu"),
                            [tb]))
