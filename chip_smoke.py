@@ -129,24 +129,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-# bitwise_not_ launches that open every trace (``trace_kernels``)
+# int16 bitwise_not_ launches that open every trace (``trace_kernels``)
 PRIMER_KERNELS = 256
 
 
 def trace_kernels(fn, host_ops: bool = False):
     """One call of ``fn`` under torch.profiler: ([(kernel name, start µs,
     end µs)] of the device, wall ms of the call). The trace opens with
-    ``PRIMER_KERNELS`` ``bitwise_not_`` launches, left out of the result:
-    after many traces in one process the first ~60 device events of a
-    trace can go unrecorded (seen on the card: a decode step's ~800
-    kernels read ~57 fewer late in the script), and the primer takes that
-    loss. The events are read from the raw trace (``kineto_results``),
-    minutes faster than the profiler's event tree for 10^5–10^6 kernels.
+    ``PRIMER_KERNELS`` int16 ``bitwise_not_`` launches and a sync, so
+    that they are the device's first events: after many traces in one
+    process the first ~60 device events of a trace can go unrecorded
+    (seen on the card: a decode step's ~800 kernels read ~57 fewer late
+    in the script), and the primer takes that loss. The leading run of
+    events named as the first, which must be the primer's int16 kernel
+    (the port's ``~mask`` on bool tensors is another instantiation, with
+    another name), is left out of the result, and only it: 1 to
+    ``PRIMER_KERNELS`` events, or ``fn``'s own first events may be lost.
+    The events are read from the raw trace (``kineto_results``), minutes
+    faster than the profiler's event tree for 10^5–10^6 kernels.
     ``host_ops`` also traces the host's ops, as the profiles of PR 11–21
     did, which lengthens the wall time a little."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    primer = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    primer = torch.zeros(1, dtype=torch.int16, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA] + (
             [ProfilerActivity.CPU] if host_ops else [])) as prof:
@@ -158,10 +163,19 @@ def trace_kernels(fn, host_ops: bool = False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda
-            and "bitwise_not" not in e.name()], wall_ms
+    events = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == cuda)
+    first = events[0][2] if events else ""
+    require("bitwise_not" in first and "bool" not in first,
+            f"trace_kernels: the trace opens with {first!r}, not the primer")
+    dropped = 0
+    while dropped < len(events) and events[dropped][2] == first:
+        dropped += 1
+    require(dropped <= PRIMER_KERNELS,
+            f"trace_kernels: {dropped} leading primer events, more than "
+            f"{PRIMER_KERNELS}")
+    return [(n, s, t) for s, t, n in events[dropped:]], wall_ms
 
 
 def device_ms(fn, match, reps: int = 20):
@@ -2796,6 +2810,9 @@ LM_EQ_CONSISTENCY = 2e-3         # prefill vs decode (tests/test_arch_smoke.py)
 # gradient of zero has an AdamW direction its gradient cannot fix: its
 # update is held only to the step bound 2·lr
 LM_EQ_UNRESOLVED = 1e-3
+# float32 rounding of a zero leaf's first step, in units of lr: the
+# update's ~5 rounded operations on each side and the step's product
+LM_EQ_ZERO_ROUND = 2.0 ** -20
 
 
 def lm_train_full(args, cfg, batches, dev) -> dict:
@@ -3007,8 +3024,27 @@ def _lm_grads(model, params, batch, num_groups=1):
         [named[n] for n in params])))
 
 
-def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
-                 zero_leaves=False):
+def _zero_leaf_limit(g, scale: float, eps: float):
+    """Per element of a leaf that is 0 before the first AdamW step, the
+    largest card-vs-CPU gap of its step, in units of lr, that gradients
+    within the checks' tolerances allow. At step 1 the update is
+    ``f(x) = x / (|x| + ε)`` of the clipped gradient ``x = scale·g``, and
+    ``f' = ε / (|x| + ε)²``. The gradient check allows ``|Δg| ≤
+    LM_EQ_LEAF_TOL·G`` (``G`` the leaf's largest ``|g|``) and the
+    grad-norm check a clip scale off by ``LM_EQ_LOSS_RTOL``, so ``|Δx| ≤
+    D = scale·(tol·G + rtol·(|g| + tol·G))``, and where ``|x| > D`` (every
+    resolved element) the step differs by at most ``ε·D / (|x| − D +
+    ε)²``, plus ``LM_EQ_ZERO_ROUND`` for float32 rounding of the update."""
+    import torch
+    G = g.abs().max()
+    d = scale * (LM_EQ_LEAF_TOL * G
+                 + LM_EQ_LOSS_RTOL * (g.abs() + LM_EQ_LEAF_TOL * G))
+    x = scale * g.abs()
+    return (eps * d / (torch.clamp_min(x - d, 0.0) + eps) ** 2
+            + LM_EQ_ZERO_ROUND)
+
+
+def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2):
     """``n_steps`` ``make_train_step`` steps on the card and on the CPU,
     each started from the CPU's state. Returns (gaps, unresolved elements,
     step bound): loss and grad norm relative; gradients, moments and
@@ -3016,14 +3052,16 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
     direction is unresolved (``LM_EQ_UNRESOLVED``), read against the step
     bound 2·lr.
 
-    With ``zero_leaves``, a leaf that is 0 before the step (a layernorm's
-    bias at init) is held apart. Its largest magnitude after the step is
-    lr, and an element at the unresolved threshold, whose gradient the
-    gradient check holds only to 10%, moves by up to ~1e-4·lr through
-    AdamW's ε: so its end-to-end gap is read (``zero_leaf_params``), and
-    every leaf's step is held instead against the CPU's AdamW on the
-    card's own gradients (``params_given_card_grads``), the arithmetic
-    given the gradients that check holds."""
+    A leaf that is 0 before the first step (a layernorm's bias at init)
+    is held apart: its largest magnitude after the step is lr, and a
+    resolved element near the threshold, whose gradient the gradient
+    check holds only to ~10%, moves by up to ~1e-4·lr through AdamW's ε.
+    Its gap is read in units of lr (``zero_leaf_params_of_lr``) and held
+    per element to what the gradient tolerances allow
+    (``_zero_leaf_limit``; ``zero_leaf_of_limit`` ≤ 1). Every leaf's step
+    is also held against the CPU's AdamW on the card's own gradients
+    (``params_given_card_grads``), the arithmetic given the gradients
+    that check holds."""
     import torch
     from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
                                              init_opt_state, lr_at, tree_map)
@@ -3034,9 +3072,8 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
              "cpu": make_train_step(host, opt_cfg, num_groups)}
     p, o = p_host, init_opt_state(p_host, opt_cfg)
     gaps = dict(loss=0.0, grad_norm=0.0, grads=0.0, mu=0.0, nu=0.0,
-                params=0.0, unresolved_max_abs=0.0)
-    if zero_leaves:
-        gaps.update(zero_leaf_params=0.0, params_given_card_grads=0.0)
+                params=0.0, unresolved_max_abs=0.0, params_given_card_grads=0.0,
+                zero_leaf_params_of_lr=0.0, zero_leaf_of_limit=0.0)
     worst = {}                   # the leaf of each largest gap
 
     def note(k, gap, n):
@@ -3052,24 +3089,26 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
         for k in ("loss", "grad_norm"):
             gaps[k] = max(gaps[k], abs(float(mc[k]) - float(mh[k]))
                           / abs(float(mh[k])))
-        step_bound = 2 * float(lr_at(opt_cfg, t + 1))
+        lr = float(lr_at(opt_cfg, t + 1))
+        step_bound = 2 * lr
         bound = max(bound, step_bound)
-        if zero_leaves:
-            with torch.no_grad():
-                pg, _, _ = apply_updates(p, {n: x.cpu() for n, x in
-                                             gc.items()}, o, opt_cfg)
+        clip = min(opt_cfg.clip_norm / max(float(mh["grad_norm"]), 1e-12),
+                   1.0)
+        with torch.no_grad():
+            pg, _, _ = apply_updates(p, {n: x.cpu() for n, x in gc.items()},
+                                     o, opt_cfg)
         for n, ref in ph.items():
             note("grads", _leaf_gap(gc[n], gh[n]), n)
             note("mu", _leaf_gap(oc.mu[n], oh.mu[n]), n)
             note("nu", _leaf_gap(oc.nu[n], oh.nu[n]), n)
+            note("params_given_card_grads", _leaf_gap(pc[n], pg[n]), n)
             unres = gh[n].abs() <= LM_EQ_UNRESOLVED * gh[n].abs().max()
             diff = (pc[n].cpu() - ref).abs()
-            zero = zero_leaves and not bool(p[n].any())
-            if zero_leaves:
-                note("params_given_card_grads", _leaf_gap(pc[n], pg[n]), n)
-            if zero and (~unres).any():
-                note("zero_leaf_params", float(diff[~unres].max()
-                                               / ref.abs().max()), n)
+            if t == 0 and not bool(p[n].any()) and (~unres).any():
+                res = diff[~unres] / lr
+                note("zero_leaf_params_of_lr", float(res.max()), n)
+                note("zero_leaf_of_limit", float((res / _zero_leaf_limit(
+                    gh[n], clip, opt_cfg.eps)[~unres]).max()), n)
             elif (~unres).any():
                 note("params", float(diff[~unres].max() / ref.abs().max()),
                      n)
@@ -3085,10 +3124,18 @@ def _train_steps(card, host, p_host, batch, dev, num_groups=1, n_steps=2,
 def _train_gaps_hold(gaps) -> bool:
     return (gaps["loss"] <= LM_EQ_LOSS_RTOL
             and gaps["grad_norm"] <= LM_EQ_LOSS_RTOL
-            and max(gaps.get(k, 0.0) for k in (
+            and max(gaps[k] for k in (
                 "grads", "mu", "nu", "params", "params_given_card_grads"))
             <= LM_EQ_LEAF_TOL
+            and gaps["zero_leaf_of_limit"] <= 1.0
             and gaps["unresolved_max_abs"] <= 1.0)
+
+
+# the leaves' params and their gaps as every LM card-vs-CPU phase reports
+# them: of each leaf's largest magnitude, and a zero leaf's in lr and of
+# its limit
+TRAIN_GAP_KEYS = ("grads", "mu", "nu", "params", "params_given_card_grads",
+                  "zero_leaf_params_of_lr", "zero_leaf_of_limit")
 
 
 def _decode_card_cpu(card, host, p_card, p_host, tokens, dev):
@@ -3181,8 +3228,9 @@ def lm_cuda_equals_cpu(dev) -> dict:
             out[arch] = dict(
                 layers=LM_EQ_LAYERS, params=sum(
                     v.numel() for v in p_host.values()),
-                steps=LM_EQ_STEPS, of_leaf_max={k: gaps[k] for k in (
-                    "grads", "mu", "nu", "params")},
+                steps=LM_EQ_STEPS,
+                gaps={k: gaps[k] for k in TRAIN_GAP_KEYS},
+                worst_leaf=gaps["worst_leaf"],
                 loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
                 unresolved_elements=unresolved,
                 unresolved_max_of_step_bound=gaps["unresolved_max_abs"],
@@ -3532,8 +3580,8 @@ def lm_moe_cuda_equals_cpu(dev) -> dict:
                     groups_with_near_ties=groups_with_near,
                     routing_entries_differ=0, aux=aux["cpu"],
                     aux_rel=aux_rel,
-                    of_leaf_max={k: gaps[k] for k in (
-                        "grads", "mu", "nu", "params")},
+                    gaps={k: gaps[k] for k in TRAIN_GAP_KEYS},
+                    worst_leaf=gaps["worst_leaf"],
                     loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
                     unresolved_elements=unresolved,
                     unresolved_max_of_step_bound=gaps[
@@ -4036,8 +4084,7 @@ def lm_ssm_cuda_equals_cpu(dev) -> dict:
                            groups_with_near_ties=groups_with_near,
                            routing_entries_differ=0, aux_rel=aux_rel)
             gaps, unresolved, bound = _train_steps(card, host, p_host, batch,
-                                                   dev, n_steps=1,
-                                                   zero_leaves=True)
+                                                   dev, n_steps=1)
             require(_train_gaps_hold(gaps),
                     f"lm_ssm_cuda_equals_cpu {arch}: {gaps}")
             logit_gap, consist, consist_ok, greedy_equal = _decode_card_cpu(
@@ -4047,9 +4094,7 @@ def lm_ssm_cuda_equals_cpu(dev) -> dict:
                     f"lm_ssm_cuda_equals_cpu {arch}: logits {logit_gap}, "
                     f"prefill/decode {consist}, greedy {greedy_equal}")
             row.update(
-                steps=1, of_leaf_max={k: gaps[k] for k in (
-                    "grads", "mu", "nu", "params", "params_given_card_grads",
-                    "zero_leaf_params")},
+                steps=1, gaps={k: gaps[k] for k in TRAIN_GAP_KEYS},
                 worst_leaf=gaps["worst_leaf"],
                 loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
                 unresolved_elements=unresolved,

@@ -1,6 +1,6 @@
 """Synthetic temporal graph generation (a copy of the JAX package's
-``repro/data/synthetic.py``; numpy, or torch on a device for a large
-graph).
+``repro/data/synthetic.py``; the draws in numpy, the lookups and the
+sort in torch).
 
 Power-law (hub-skewed) degree distributions model the paper's datasets
 (§2.4.1: "on hub-skewed temporal graphs this redundancy dominates");
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class TemporalGraph(NamedTuple):
@@ -25,35 +26,31 @@ def powerlaw_temporal_graph(num_nodes: int, num_edges: int, *,
                             skew: float = 1.2, t_max: int = 10_000,
                             seed: int = 0, ts_groups: int | None = None,
                             self_loops: bool = False,
-                            device=None) -> TemporalGraph:
+                            device="cpu") -> TemporalGraph:
     """Edges with Zipf-ish endpoints and uniform timestamps in [0, t_max].
 
     ``ts_groups`` quantizes timestamps onto that many distinct values,
     reproducing the paper's high-frequency regime where "many events
     concentrate into each millisecond timestamp" (§3.3).
 
-    ``device`` (a torch device) runs the endpoints' inverse-CDF lookups
-    and the stable sort by time there, on the same draws: numpy's
-    ``Generator.choice(n, p=probs)`` is ``cdf.searchsorted(random(size),
-    side="right")`` with ``cdf = cumsum(probs) / cumsum(probs)[-1]``, and
-    a stable sort has one order, so the graph is the same bit for bit.
-    The arrays come back as numpy.
+    The endpoints' inverse-CDF lookups and the stable sort by time run in
+    torch on ``device`` (a large graph's on the card), on the reference's
+    draws: numpy's ``Generator.choice(n, p=probs)`` is
+    ``cdf.searchsorted(random(size), side="right")`` with ``cdf =
+    cumsum(probs) / cumsum(probs)[-1]``, and a stable sort has one order,
+    so the graph is the reference's bit for bit. The arrays come back as
+    numpy.
     """
     rng = np.random.default_rng(seed)
     ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
     probs = ranks ** (-skew)
     probs /= probs.sum()
-    if device is None:
-        src = rng.choice(num_nodes, size=num_edges, p=probs).astype(np.int32)
-        dst = rng.choice(num_nodes, size=num_edges, p=probs).astype(np.int32)
-    else:
-        import torch
-        cdf = probs.cumsum()
-        cdf /= cdf[-1]
-        cdf_t = torch.from_numpy(cdf).to(device)
-        src, dst = (torch.searchsorted(
-            cdf_t, torch.from_numpy(rng.random(num_edges)).to(device),
-            right=True).to(torch.int32).cpu().numpy() for _ in range(2))
+    cdf = probs.cumsum()
+    cdf /= cdf[-1]
+    cdf_t = torch.from_numpy(cdf).to(device)
+    src, dst = (torch.searchsorted(
+        cdf_t, torch.from_numpy(rng.random(num_edges)).to(device),
+        right=True).to(torch.int32).cpu().numpy() for _ in range(2))
     if not self_loops:
         loops = src == dst
         dst[loops] = (dst[loops] + 1) % num_nodes
@@ -61,11 +58,8 @@ def powerlaw_temporal_graph(num_nodes: int, num_edges: int, *,
     if ts_groups is not None:
         step = max(t_max // ts_groups, 1)
         ts = (ts // step) * step
-    if device is None:
-        order = np.argsort(ts, kind="stable")
-    else:
-        order = torch.sort(torch.from_numpy(ts).to(device),
-                           stable=True).indices.cpu().numpy()
+    order = torch.sort(torch.from_numpy(ts).to(device),
+                       stable=True).indices.cpu().numpy()
     return TemporalGraph(src[order], dst[order], ts[order].astype(np.int32),
                          num_nodes)
 

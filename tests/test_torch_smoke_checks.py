@@ -1,0 +1,89 @@
+"""Checks of ``chip_smoke.py`` that run on the CPU.
+
+``_zero_leaf_limit`` bounds the card-vs-CPU gap of the first AdamW step of
+a leaf that is 0 before it, given gradients within the gradient check's
+tolerance and a grad norm within its own: the port's ``apply_updates``
+on gradients perturbed anywhere inside those tolerances stays within the
+limit, and an update that is wrong (another ε, another lr, a flipped
+element) does not.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
+                                         init_opt_state, lr_at)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _smoke()
+OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _leaf(G, seed):
+    """A zero leaf's gradient [4096] spanning many decades under its
+    largest magnitude ``G``, and another leaf's that sets the clip."""
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn(4096, generator=gen) * torch.exp(
+        3 * torch.randn(4096, generator=gen))
+    return g / g.abs().max() * G, gen
+
+
+def _first_step(g, other, eps=OPT.eps, lr_scale=1.0):
+    cfg = AdamWConfig(lr=OPT.lr * lr_scale, warmup_steps=1, total_steps=10,
+                      eps=eps)
+    p = {"z": torch.zeros_like(g), "o": torch.zeros_like(other)}
+    new, _, metrics = apply_updates(p, {"z": g, "o": other},
+                                    init_opt_state(p, cfg), cfg)
+    return new["z"], float(metrics["grad_norm"])
+
+
+def _of_limit(g, got):
+    """The largest gap of ``got`` against the CPU's step from ``g``, over
+    the resolved elements, in units of their limits."""
+    other = torch.linspace(-1.0, 1.0, 100)
+    want, gnorm = _first_step(g, other)
+    lr = float(lr_at(OPT, 1))
+    clip = min(OPT.clip_norm / max(gnorm, 1e-12), 1.0)
+    res = g.abs() > CS.LM_EQ_UNRESOLVED * g.abs().max()
+    lim = CS._zero_leaf_limit(g, clip, OPT.eps)
+    return float(((got - want).abs() / lr / lim)[res].max())
+
+
+@pytest.mark.parametrize("G", [1e-7, 1e-5, 1e-3, 1e-1, 10.0])
+def test_gradients_within_tolerance_stay_within_the_limit(G):
+    other = torch.linspace(-1.0, 1.0, 100)
+    worst = 0.0
+    for seed in range(8):
+        g, gen = _leaf(G, seed)
+        gc = g + CS.LM_EQ_LEAF_TOL * G * (
+            2 * torch.rand(4096, generator=gen) - 1)
+        got, _ = _first_step(gc, other * (1 + CS.LM_EQ_LOSS_RTOL / 2))
+        worst = max(worst, _of_limit(g, got))
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("wrong", ["eps", "lr", "sign"])
+def test_a_wrong_update_exceeds_the_limit(wrong):
+    g, _ = _leaf(1e-2, 0)
+    other = torch.linspace(-1.0, 1.0, 100)
+    if wrong == "eps":
+        got, _ = _first_step(g, other, eps=10 * OPT.eps)
+    elif wrong == "lr":
+        got, _ = _first_step(g, other, lr_scale=1 + 1e-4)
+    else:
+        got, _ = _first_step(g, other)
+        i = int(g.abs().argmax())
+        got[i] = -got[i]
+    assert _of_limit(g, got) > 1.0

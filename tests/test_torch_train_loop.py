@@ -63,10 +63,14 @@ def _setup(arch, seed=0):
     return rcfg, cfg, params, rb, tb
 
 
-@functools.lru_cache(maxsize=None)
 def _ref_step(arch, num_groups=1):
     """The reference's jitted train step of reduced ``arch``, compiled once
-    a process."""
+    a process (``_ref_step(a)`` and ``_ref_step(a, 1)`` are one step)."""
+    return _ref_step_of(arch, num_groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_step_of(arch, num_groups):
     return jax.jit(ref_train_step(ref_reduced(ref_get_config(arch)),
                                   RAdamW(**OPT), num_groups=num_groups))
 
