@@ -14,7 +14,7 @@ tile-local contract), times one fused hop alone, drives the streaming
 main path (ingest -> index rebuild -> fused-hop walks) at full size
 through ``StreamingEngine.replay_device``, replays the same stream on the
 tiled path, holds the seven first-order layouts to byte-identical walks
-at full width, runs weight mode at a reduced window, serves 512 walk
+at full width, runs weight mode at a reduced window, serves 320 walk
 queries through ``WalkService`` on the fused path against the main
 path's window while its next batch is ingested (checked against solo
 runs, the grouped path, a synchronous ring and the CPU), replays the
@@ -22,7 +22,7 @@ stream through the node-partitioned window with 4 shards on the card
 (``DistributedStreamingEngine``, byte-equal to the single-device replay
 across a live ``rebalance``), samples walk-axis-sharded walks on the
 fused, tiled and grouped paths, holds small sharded replays, reshards
-and the static walker to the CPU and to one shard, serves 48 queries
+and the static walker to the CPU and to one shard, serves 40 queries
 through ``WalkService(num_shards=4)`` on the main path's window while its
 next batch is ingested (every ticket equal to the single-device
 service's), holds small sharded services to the CPU and to single-device
@@ -41,7 +41,11 @@ residual) at full width and cut depth in bf16 on prompts of the same
 walks, holds both MoE models reduced on the card to the CPU, trains
 xlstm-125m (mLSTM and sLSTM) at full size on the same walks, serves it
 and jamba-v0.1-52b (mamba, attention, MoE) at full width on one period
-in bf16, holds both in float32 on the card to the CPU, and prints
+in bf16, holds both in float32 on the card to the CPU, trains
+seamless-m4t-medium (an encoder over audio frames, cross-attention) at
+full size on the same walks, serves it and qwen2-vl-72b (patches before
+the text, M-RoPE) at full width on 2 layers in bf16, holds both reduced
+in float32 on the card to the CPU, and prints
 one JSON line per phase, each with its wall seconds (``wall_s``, since
 the line before). The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
@@ -129,22 +133,50 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-# int16 bitwise_not_ launches that open every trace (``trace_kernels``)
-PRIMER_KERNELS = 256
+# the primer that opens every trace (``trace_kernels``): int16
+# bitwise_not_ launches in rounds of PRIMER_ROUND, each round followed by a
+# sync, until at least PRIMER_ROUNDS rounds and PRIMER_MS of host time
+PRIMER_ROUND = 64
+PRIMER_ROUNDS = 4
+PRIMER_MS = 20.0
+# over all traces: how many, the fewest primer launches, and the most
+# events of the opening and of the closing primer a trace did not record
+PRIMER = {"traces": 0, "launched_least": None, "lost_most_opening": 0,
+          "lost_most_closing": 0}
+
+
+def prime(primer) -> int:
+    """Launch the primer's rounds, at least ``PRIMER_ROUNDS`` and for at
+    least ``PRIMER_MS``; returns the launches."""
+    import torch
+    launched = 0
+    t0 = time.perf_counter()
+    while launched < PRIMER_ROUNDS * PRIMER_ROUND \
+            or (time.perf_counter() - t0) * 1e3 < PRIMER_MS:
+        for _ in range(PRIMER_ROUND):
+            primer.bitwise_not_()
+        launched += PRIMER_ROUND
+        torch.cuda.synchronize()
+    return launched
 
 
 def trace_kernels(fn, host_ops: bool = False):
     """One call of ``fn`` under torch.profiler: ([(kernel name, start µs,
-    end µs)] of the device, wall ms of the call). The trace opens with
-    ``PRIMER_KERNELS`` int16 ``bitwise_not_`` launches and a sync, so
-    that they are the device's first events: after many traces in one
-    process the first ~60 device events of a trace can go unrecorded
-    (seen on the card: a decode step's ~800 kernels read ~57 fewer late
-    in the script), and the primer takes that loss. The leading run of
-    events named as the first, which must be the primer's int16 kernel
-    (the port's ``~mask`` on bool tensors is another instantiation, with
-    another name), is left out of the result, and only it: 1 to
-    ``PRIMER_KERNELS`` events, or ``fn``'s own first events may be lost.
+    end µs)] of the device, wall ms of the call). The trace opens with a
+    primer of int16 ``bitwise_not_`` launches and syncs that lasts at
+    least ``PRIMER_MS`` (``prime``), so that they are the device's first
+    events, and closes with another on int8, so that they are its last: the
+    first device events of a trace can go unrecorded (seen on the card: a
+    decode step's ~800 kernels read ~57 fewer late in the script, and once
+    a 256-launch primer was lost whole, so that the trace opened with the
+    traced batch's own ``arange``), and the primer takes that loss. The
+    leading run of events named as the first, which must be the primer's
+    int16 kernel (the port's ``~mask`` on bool tensors is another
+    instantiation, with another name), is left out of the result, and only
+    it: 1 to all of the primer's launches, or ``fn``'s own first events
+    may be lost; so is the trailing run of the closing primer's kernel,
+    which must be the last event, 1 to all of its launches. ``PRIMER`` keeps the most primer events a
+    trace lost.
     The events are read from the raw trace (``kineto_results``), minutes
     faster than the profiler's event tree for 10^5–10^6 kernels.
     ``host_ops`` also traces the host's ops, as the profiles of PR 11–21
@@ -152,30 +184,49 @@ def trace_kernels(fn, host_ops: bool = False):
     import torch
     from torch.profiler import ProfilerActivity, profile
     primer = torch.zeros(1, dtype=torch.int16, device="cuda")
+    closer = torch.zeros(1, dtype=torch.int8, device="cuda")
+    primer.bitwise_not_()
+    closer.bitwise_not_()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA] + (
             [ProfilerActivity.CPU] if host_ops else [])) as prof:
-        for _ in range(PRIMER_KERNELS):
-            primer.bitwise_not_()
-        torch.cuda.synchronize()
+        launched = prime(primer)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        tail = prime(closer)
     cuda = torch.autograd.DeviceType.CUDA
     events = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
                     for e in prof.profiler.kineto_results.events()
                     if e.device_type() == cuda)
     first = events[0][2] if events else ""
     require("bitwise_not" in first and "bool" not in first,
-            f"trace_kernels: the trace opens with {first!r}, not the primer")
-    dropped = 0
-    while dropped < len(events) and events[dropped][2] == first:
-        dropped += 1
-    require(dropped <= PRIMER_KERNELS,
-            f"trace_kernels: {dropped} leading primer events, more than "
-            f"{PRIMER_KERNELS}")
-    return [(n, s, t) for s, t, n in events[dropped:]], wall_ms
+            f"trace_kernels: the trace opens with {first!r}, not the primer "
+            f"({launched} primer launches, {len(events)} device events)")
+    kept = 0
+    while kept < len(events) and events[kept][2] == first:
+        kept += 1
+    last = events[-1][2]
+    require("bitwise_not" in last and "bool" not in last and last != first,
+            f"trace_kernels: the trace closes with {last!r}, not the "
+            f"closing primer ({tail} launches)")
+    kept_tail = 0
+    while kept_tail < len(events) - kept \
+            and events[-1 - kept_tail][2] == last:
+        kept_tail += 1
+    require(kept <= launched and kept_tail <= tail,
+            f"trace_kernels: {kept} leading and {kept_tail} trailing primer "
+            f"events of {launched} and {tail} launched")
+    PRIMER["traces"] += 1
+    PRIMER["launched_least"] = min(launched, tail, PRIMER["launched_least"]
+                                   or launched)
+    PRIMER["lost_most_opening"] = max(PRIMER["lost_most_opening"],
+                                      launched - kept)
+    PRIMER["lost_most_closing"] = max(PRIMER["lost_most_closing"],
+                                      tail - kept_tail)
+    return [(n, s, t) for s, t, n in events[kept:len(events) - kept_tail]], \
+        wall_ms
 
 
 def device_ms(fn, match, reps: int = 20):
@@ -835,8 +886,10 @@ def paths_agree(index, wcfg):
                 weight_tiled_vs_grouped=weight), share.reading(), stats
 
 
-# the serving phase: queries in all, per wave, and compared with solo runs
-SERVE_QUERIES = 512
+# the serving phase: queries in all (five waves; 1,024 until the recurrent
+# LM phases, 512 until the enc-dec ones needed the seconds), per wave, and
+# compared with solo runs
+SERVE_QUERIES = 320
 SERVE_WAVE = 64
 SERVE_SOLO = 64
 # window batches ingested before serving; the next is ingested while
@@ -1208,13 +1261,15 @@ def serve_cuda_equals_cpu(dev) -> dict:
 # batches of the main stream replayed on the table path (24 until the
 # recurrent LM phases needed the seconds)
 TABLE_BATCHES = 16
-# served queries of serve_tables, compared with solo runs
-SERVE_TABLE_QUERIES = 32
+# served queries of serve_tables (32 until the enc-dec LM phases needed
+# the seconds), compared with solo runs
+SERVE_TABLE_QUERIES = 24
 SERVE_TABLE_SOLO = 16
 # node2vec phases: (p, q) of the config walks
 N2V_PQ = (0.5, 2.0)
-# tables_cuda_equals_cpu's served queries, in six waves
-TABLES_EQ_QUERIES = 18
+# tables_cuda_equals_cpu's served queries, in five waves (18 in six until
+# the enc-dec LM phases needed the seconds)
+TABLES_EQ_QUERIES = 15
 TABLES_EQ_WAVE = 3
 
 
@@ -1648,9 +1703,9 @@ def probed_replay(cfg, batches, wcfg, unprobed_walks, unprobed_syncs,
 SHARDS = 4
 SHARD_WALK_PATHS = ("fused", "tiled", "grouped")
 # batches of sharded_path's second half, after the rebalance (12 until
-# the recurrent LM phases needed the seconds): the window is full after
-# the first half, so each of them evicts
-SHARD_SECOND_HALF = 4
+# the recurrent LM phases, 4 until the enc-dec ones needed the seconds):
+# the window is full after the first half, so each of them evicts
+SHARD_SECOND_HALF = 2
 
 
 def shard_config(args):
@@ -1809,7 +1864,7 @@ def sharded_walks(single, wcfg, dev) -> dict:
 
 def sharded_path(args, cfg, batches, dev) -> dict:
     """The node-partitioned window at full size, 4 shards on one card:
-    batches 1-12, ``rebalance()``, batches 13-16 (``SHARD_SECOND_HALF``),
+    batches 1-12, ``rebalance()``, batches 13-14 (``SHARD_SECOND_HALF``),
     each half byte-equal to
     the single-device replay of the same batches, no drops, hop validity
     1.0, ``weight_prefix`` launched twice per shard and ingest. Between
@@ -2060,11 +2115,14 @@ def sharded_small(dev) -> dict:
 
 
 # ---- sharded serving and the window checkpoints --------------------------
-# queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: six waves, the
-# next batch ingested from the fourth to the sixth
-SERVE_SHARDED_QUERIES = 48
+# queries of serve_sharded, in waves of SERVE_SHARDED_WAVE: five waves, the
+# next batch ingested from the third to the fifth (six waves of 48 until
+# the enc-dec LM phases needed the seconds)
+SERVE_SHARDED_QUERIES = 40
 SERVE_SHARDED_WAVE = 8
-# serve_sharded_small's 16 queries in waves of 3: six waves, as above
+# serve_sharded_small's queries in waves of 3: five waves, as above (16
+# in six until the enc-dec LM phases)
+SERVE_SHARDED_SMALL_QUERIES = 15
 SERVE_SHARDED_SMALL_WAVE = 3
 # window_checkpoint's reduced stream: nodes, edges per batch, batches
 CKPT_NODES, CKPT_BATCH, CKPT_BATCHES = 1 << 20, 1 << 20, 6
@@ -2237,8 +2295,8 @@ def serve_sharded_small(dev) -> dict:
                             node_capacity=N),
         sampler=SamplerConfig(mode="index"),
         scheduler=SchedulerConfig(path="grouped"), shard=roomy)
-    queries = serve_traffic(np.random.default_rng(4), N, np.arange(8), n=16,
-                            max_length=16)
+    queries = serve_traffic(np.random.default_rng(4), N, np.arange(8),
+                            n=SERVE_SHARDED_SMALL_QUERIES, max_length=16)
     loads = np.bincount(g.src, minlength=N)
 
     def serve(d, D=0, kind="range", shard=roomy):
@@ -2471,9 +2529,10 @@ TRAIN_SPLIT = 0.7
 TRAIN_TEST = 0.85
 # the split's last batches trained; the batches before them are ingested
 # and walked. Cut from all 17 of the full run to its 5 after the window
-# fills: a batch trains in ~3 s on an H100 (NVIDIA H100 80GB HBM3,
-# 700 W), and the whole run must fit 1,200 s on a slower host
-TRAIN_BATCHES = 5
+# fills, then to 3 for the enc-dec LM phases: a batch trains in ~3 s on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W), and the whole run must fit
+# 1,200 s on a slower host
+TRAIN_BATCHES = 3
 
 
 def train_embeddings(args, cfg, batches, g, dev) -> dict:
@@ -2792,8 +2851,9 @@ def optimizer_cuda_equals_cpu(dev) -> dict:
 # path's final window packed into batch × seq tokens, AdamW
 LM_TRAIN = dict(arch="olmo-1b", walks=1 << 14, batch=8, seq=2048, steps=5,
                 lr=3e-4, warmup_steps=2)
-# examples/serve_lm.py at full size: qwen2-0.5b from the KV cache
-LM_SERVE = dict(arch="qwen2-0.5b", prompts=64, prompt_len=512, max_seq=1024,
+# examples/serve_lm.py at full size: qwen2-0.5b from the KV cache, on
+# prompts of 256 (512 until the enc-dec LM phases needed the seconds)
+LM_SERVE = dict(arch="qwen2-0.5b", prompts=64, prompt_len=256, max_seq=1024,
                 new_tokens=128)
 # dense bf16 peak of one H100 SXM, NVIDIA's data sheet (no sparsity), at
 # the full 700 W power limit
@@ -2921,7 +2981,7 @@ def lm_train_full(args, cfg, batches, dev) -> dict:
 
 def lm_serve_full(walks, dev) -> dict:
     """qwen2-0.5b at full width and depth serving in bf16: 64 prompts of
-    512 walk tokens, ``make_prefill_step`` over them, the KV cache
+    256 walk tokens, ``make_prefill_step`` over them, the KV cache
     (max_seq 1024) filled by ``decode_step`` over each prompt, then 128
     tokens decoded greedily by ``make_serve_step``. A decode step must
     make no host sync (``set_sync_debug_mode("error")``)."""
@@ -3138,11 +3198,13 @@ TRAIN_GAP_KEYS = ("grads", "mu", "nu", "params", "params_given_card_grads",
                   "zero_leaf_params_of_lr", "zero_leaf_of_limit")
 
 
-def _decode_card_cpu(card, host, p_card, p_host, tokens, dev):
+def _decode_card_cpu(card, host, p_card, p_host, tokens, dev, frames=None):
     """From the given parameters on both sides: 8 decode steps of
     ``tokens`` [2, ≥9], the card's prefill of the same 8, then 4 greedy
-    tokens. Returns (logits of the largest, prefill vs decode max abs,
-    prefill vs decode within ``LM_EQ_CONSISTENCY``, greedy equal)."""
+    tokens. An enc-dec model decodes over the encoder's memory of
+    ``frames`` and prefills over them; a VLM prefills with 0 patches.
+    Returns (logits of the largest, prefill vs decode max abs, prefill vs
+    decode within ``LM_EQ_CONSISTENCY``, greedy equal)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.train.train_loop import make_serve_step
@@ -3152,12 +3214,21 @@ def _decode_card_cpu(card, host, p_card, p_host, tokens, dev):
         M.bind_params(model, params)
         t = tokens.to(d)
         st = M.init_decode_state(model, 2, 16)
+        extra = {}
+        if model.cfg.family == "vlm":
+            extra["patches"] = torch.zeros((2, 0, model.cfg.d_model),
+                                           device=d)
+        if frames is not None:
+            extra["frames"] = frames.to(d)
+            with torch.no_grad():
+                enc_out, enc_pos = M.run_encoder(model, extra["frames"])
+            st = st._replace(enc_out=enc_out, enc_pos=enc_pos)
         lg = []
         with torch.no_grad():
             for i in range(8):
                 x, st = M.decode_step(model, t[:, i:i + 1], st)
                 lg.append(x[:, 0])
-            pre, _, _ = M.forward(model, {"tokens": t[:, :8]})
+            pre, _, _ = M.forward(model, {"tokens": t[:, :8], **extra})
             pre = M.logits_from_hidden(model, pre)
         serve = make_serve_step(model)
         tok, gen = t[:, 8:9], []
@@ -3261,7 +3332,7 @@ LM_MOE = dict(prompts=16, prompt_len=512, max_seq=1024, decode_batch=64,
 # the CPU side takes seconds; a token whose CPU gap between its k-th and
 # (k+1)-th routing probability is below LM_MOE_NEAR_TIE may route apart
 LM_MOE_EQ = dict(layers=2, d_model=1024, vocab=8192, experts=64, batch=4,
-                 seq=128, groups=(1, 4), steps=1)
+                 seq=64, groups=(1, 4), steps=1)
 LM_MOE_NEAR_TIE = 1e-5
 # init's peak may exceed the parameters plus one slab's draw by the
 # caching allocator's rounding of ~30 leaves and their temporaries
@@ -3526,7 +3597,8 @@ def _routing_agreement(card, host, cfg, tokens, dev, g):
 def lm_moe_cuda_equals_cpu(dev) -> dict:
     """deepseek-v2-236b and arctic-480b ``reduced`` to 2 layers, d_model
     1024, 64 experts (top-2), vocab 8192, in float32 with TF32 off, the
-    same parameters on the card and the CPU, a 4 × 128 batch. At
+    same parameters on the card and the CPU, a 4 × 64 batch (4 × 128
+    until the enc-dec LM phases needed the seconds). At
     ``num_groups`` 1 and 4: every MoE layer's routing on the first
     forward equal (top-k experts of every token but the near ties, whose
     CPU gap between the k-th and (k+1)-th probability is below
@@ -3624,19 +3696,22 @@ def lm_moe_cuda_equals_cpu(dev) -> dict:
 
 # lm_ssm_train_full: xlstm-125m at full size (configs/xlstm_125m.py: 9
 # mLSTM and 3 sLSTM layers) trained as lm_train_full trains olmo-1b,
-# float32 masters, bf16 compute, remat per block: 2 steps, the second
-# traced (a step takes ~20 s: its ~7·10^5 kernels are issued one eager op
-# at a time, and reading its trace takes ~30 s more)
-LM_SSM_TRAIN = dict(arch="xlstm-125m", batch=8, seq=2048, steps=2, lr=3e-4,
+# float32 masters, bf16 compute, remat per block, on 8 × 512 tokens (2048
+# until the enc-dec phases needed the seconds): 2 steps, the second
+# traced (the time loops launch their kernels a sequence position at a
+# time, so a step's ~1.8·10^5 kernels and the reading of its trace scale
+# with the length, not the batch)
+LM_SSM_TRAIN = dict(arch="xlstm-125m", batch=8, seq=512, steps=2, lr=3e-4,
                     warmup_steps=1)
 # lm_ssm_serve_full, bf16: xlstm-125m at full size (prefill, a cache
-# filled by decode over the prompts, greedy steps) and jamba-v0.1-52b at
+# filled by decode over the prompts, of 256 tokens since the enc-dec
+# phases, 512 before, greedy steps) and jamba-v0.1-52b at
 # full width on one period of 8 of its 32 layers (prefill, a cache
 # filled by `fill` steps at the decode batch, greedy steps); the mamba
 # block's kernels per token are read here (xlstm's blocks' in training)
 LM_SSM_SERVE = (
-    ("xlstm-125m", dict(layers=None, prompts=64, prompt_len=512,
-                        max_seq=1024, decode_batch=64, fill=512,
+    ("xlstm-125m", dict(layers=None, prompts=64, prompt_len=256,
+                        max_seq=1024, decode_batch=64, fill=256,
                         new_tokens=64, kernels_per_token=())),
     ("jamba-v0.1-52b", dict(layers=8, prompts=16, prompt_len=512,
                             max_seq=1024, decode_batch=64, fill=16,
@@ -3704,7 +3779,7 @@ def lm_ssm_train_full(engine, args, dev) -> dict:
     """xlstm-125m at full size (12 layers: 9 mLSTM in the chunkwise form,
     3 sLSTM; d_model 768) trained as ``lm_train_full`` trains olmo-1b:
     each step samples 2^14 walks × 80 from nodes on the main path's final
-    window (fused path), packs them into 8 × 2048 tokens and takes one
+    window (fused path), packs them into 8 × 512 tokens and takes one
     ``make_train_step`` step (float32 masters, bf16 compute, remat per
     block, AdamW lr 3e-4, warmup 1), ``LM_SSM_TRAIN["steps"]`` steps, the
     last traced. Per step: ms (CUDA events, packing apart; the traced
@@ -4129,6 +4204,504 @@ def lm_ssm_cuda_equals_cpu(dev) -> dict:
                              consistency=LM_EQ_CONSISTENCY,
                              unresolved=LM_EQ_UNRESOLVED,
                              near_tie=LM_MOE_NEAR_TIE)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- the enc-dec and VLM families (cross-attention, M-RoPE) ------------
+
+# lm_encdec_train_full: seamless-m4t-medium at full size (12 encoder and
+# 12 decoder layers of 1,024, untied 256,206-row tables) trained as
+# lm_ssm_train_full trains xlstm-125m, each step on 8 × 2048 walk tokens
+# over 8 × ENC_FRAMES frames: 2 steps, the second traced
+LM_ENCDEC_TRAIN = dict(arch="seamless-m4t-medium", batch=8, seq=2048,
+                       steps=2, lr=3e-4, warmup_steps=1)
+# lm_encdec_vlm_serve_full, bf16, slab-drawn: seamless at full size (a
+# prefill over the encoder's memory, the decode state's memory set by
+# run_encoder, the cache filled by decoding the prompts, greedy steps)
+# and qwen2-vl-72b at full width on 2 of its 80 layers (a prefill of
+# patches and text, the cache filled by `fill` text steps at the decode
+# batch, greedy steps: a VLM decode embeds tokens only)
+LM_ENCDEC_SERVE = (
+    ("seamless-m4t-medium", dict(layers=None, prompts=16, prompt_len=512,
+                                 patches=0, max_seq=1024, decode_batch=16,
+                                 fill=512, new_tokens=32)),
+    ("qwen2-vl-72b", dict(layers=2, prompts=4, prompt_len=1024,
+                          patches=1024, max_seq=1024, decode_batch=64,
+                          fill=16, new_tokens=32)))
+# lm_encdec_vlm_cuda_equals_cpu, float32, TF32 off: both ``reduced`` to 2
+# layers (seamless: 2 + 2) at d_model 1024 with a vocabulary of 8192, on
+# 2 × 64 tokens; seamless over 2 × ENC_FRAMES frames, qwen2-vl after 24
+# patches (not a square: the grid's rows run past its side)
+LM_ENCDEC_EQ = dict(layers=2, d_model=1024, vocab=8192, seq=64, patches=24)
+# the stub frontends' inputs, as tests/test_arch_smoke.py scales them
+FRAME_SCALE, PATCH_SCALE = 0.1, 0.02
+
+
+def modality_inputs(cfg, B: int, key, dev, n_patches: int = 0) -> dict:
+    """The precomputed frontend embeddings a batch of ``cfg``'s family
+    holds, float32 from ``repro_torch.random.normal`` under ``key``:
+    ``frames [B, ENC_FRAMES, d]`` × 0.1 (enc_dec), ``patches [B,
+    n_patches, d]`` × 0.02 (vlm); empty for the other families."""
+    from repro_torch import random as prng
+    from repro_torch.models import model as M
+    out = {}
+    if cfg.family == "enc_dec":
+        out["frames"] = FRAME_SCALE * prng.normal(
+            prng.fold_in(key, 0), (B, M.ENC_FRAMES, cfg.d_model), dev)
+    if cfg.family == "vlm":
+        out["patches"] = PATCH_SCALE * prng.normal(
+            prng.fold_in(key, 1), (B, n_patches, cfg.d_model), dev)
+    return out
+
+
+def encdec_train_flops(cfg, B: int, S: int, S_enc: int) -> dict:
+    """Model FLOPs of one train step of an enc-dec ``cfg`` by part, 3×
+    the forward's (the forward and its backward; the remat recompute is
+    not counted), 2 a multiply-add, from the code: the decoder's weights
+    (self-attention, the cross-attention's q and o, the MLP) on its
+    ``B·S`` tokens; the cross-attention's K and V projections on the
+    ``B·S_enc`` frames in every decoder layer; the encoder's weights on
+    the frames; the unembedding on the decoder's tokens (the embedding is
+    a gather); and the attention products, which ``_chunked_attention``
+    computes over every chunk, masked or not (QKᵀ and PV:
+    ``4·B·Sq·Skv·H·D`` a layer)."""
+    att = cfg.attention
+    d, L, Le = cfg.d_model, cfg.num_layers, cfg.encoder_layers
+    hd, kvd = att.n_heads * att.head_dim, att.n_kv_heads * att.head_dim
+    mlp = (3 if cfg.activation in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    self_attn = 2 * d * hd + 2 * d * kvd
+    fwd = dict(
+        decoder=2 * B * S * L * (self_attn + 2 * d * hd + mlp),
+        cross_kv=2 * B * S_enc * L * 2 * d * kvd,
+        encoder=2 * B * S_enc * Le * (self_attn + mlp),
+        unembed=2 * B * S * cfg.vocab_size * d,
+        attention=4 * B * hd * (L * S * S + L * S * S_enc
+                                + Le * S_enc * S_enc))
+    return {k: 3 * v for k, v in fwd.items()}
+
+
+def decode_bounds(model, state, B: int) -> dict:
+    """The least time one ``decode_step`` at batch ``B`` could take, from
+    the code, as the larger of two. Bytes: every weight a step applies
+    read once (the embedding's ``B`` rows, not its table, unless it is
+    tied), each attention cache read whole (a step's scores cover every
+    slot, masked or not) and the encoder memory read by every
+    cross-attention layer, over the memory rate. Operations, 2 a
+    multiply-add: every weight matrix on the ``B`` tokens, but the
+    cross-attention's K and V projections on the memory's ``B·S_enc``
+    rows in every layer (recomputed each step, as the reference does),
+    the unembedding, and the attention products over the cache and the
+    memory (``4·B·S·H·D`` a layer), over the bf16 peak."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import KVCache
+    cfg = model.cfg
+    att = cfg.attention
+    hd = att.n_heads * att.head_dim
+    emb = model.embed.table
+    elt = emb.element_size()
+    # the encoder's weights are read once a prefill, not a step
+    param_bytes = sum(p.numel() * p.element_size()
+                      for n, p in model.named_parameters()
+                      if not n.startswith("enc_"))
+    weight_bytes = param_bytes + B * cfg.d_model * elt \
+        - (0 if cfg.tie_embeddings else emb.numel() * elt)
+    kv_bytes = sum(t.numel() * t.element_size() for c in state.caches
+                   if isinstance(c, KVCache) for t in c)
+    S_enc = 0 if state.enc_out is None else state.enc_out.shape[1]
+    blks = tfm.blocks(model.layers)
+    n_cross = sum(1 for b in blks if b.cross_attention)
+    memory_bytes = 0 if state.enc_out is None else n_cross * (
+        state.enc_out.numel() * state.enc_out.element_size())
+    flops = 2 * B * model.out_table().numel()
+    for blk, cache in zip(blks, state.caches):
+        for n, p in blk.named_parameters():
+            leaf = n.rsplit(".", 1)[-1]
+            if p.dim() < 2 or leaf in ("bq", "bk", "bv"):
+                continue                     # norms and biases
+            rows = B * S_enc if n in ("cross.wk", "cross.wv") else B
+            flops += 2 * rows * p.numel()
+        if blk.spec.kind == "attn":
+            flops += 4 * B * hd * cache.k.shape[2]
+        if blk.cross_attention:
+            flops += 4 * B * hd * S_enc
+    bytes_ms = (weight_bytes + kv_bytes + memory_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                bytes_bound_ms=bytes_ms, flops_bound_ms=flops_ms,
+                weight_bytes=weight_bytes, kv_bytes=kv_bytes,
+                memory_bytes=memory_bytes, flops=flops)
+
+
+def lm_encdec_train_full(engine, args, dev) -> dict:
+    """seamless-m4t-medium at full size (12 encoder and 12 decoder layers
+    of 1,024, cross-attention in every decoder layer, untied 256,206-row
+    tables) trained as ``lm_ssm_train_full`` trains xlstm-125m: each step
+    samples 2^14 walks × 80 from nodes on the main path's final window
+    (fused path), packs them into 8 × 2048 tokens over 8 × ENC_FRAMES
+    frames and takes one ``make_train_step`` step (float32 masters, bf16
+    compute, remat per block in both stacks, AdamW lr 3e-4, warmup 1);
+    the last step is traced. Per step: ms (CUDA events, packing apart;
+    the traced step's by the host clock inside its trace), tokens/s,
+    model FLOP/s as a share of the bf16 peak (``encdec_train_flops``),
+    host syncs, loss and grad norm (required finite, the second loss
+    below the first); the traced step's kernels and idle share; peak
+    memory."""
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = LM_ENCDEC_TRAIN
+    mcfg = get_config(c["arch"])
+    t0 = time.perf_counter()
+    model = M.init_params(mcfg, prng.PRNGKey(40), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_steps, B, S = c["steps"], c["batch"], c["seq"]
+    opt_cfg = AdamWConfig(lr=c["lr"], warmup_steps=c["warmup_steps"],
+                          total_steps=n_steps)
+    step = make_train_step(model, opt_cfg)
+    params = M.params_of(model)
+    opt = init_opt_state(params, opt_cfg)
+    frames = modality_inputs(mcfg, B, prng.PRNGKey(41), dev)["frames"]
+    flops = encdec_train_flops(mcfg, B, S, frames.shape[1])
+    step_flops = sum(flops.values())
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    rows = []
+    runtime.reset_launches()
+    for s in range(n_steps):
+        walks = engine.sample_walks(wcfg)
+        t0 = time.perf_counter()
+        nodes, lengths = walks.nodes.cpu().numpy(), walks.lengths.cpu().numpy()
+        toks, labels = walks_to_lm_batch(nodes, lengths, S, B,
+                                         mcfg.vocab_size, seed=700 + s)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev),
+                 "frames": frames}
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        if s == n_steps - 1:
+            res = []
+            step_profile = kernel_reading(*trace_kernels(
+                lambda: res.append(step(params, opt, batch))))
+            (params, opt, metrics), syncs, sites = res[0], None, None
+            ms = step_profile["traced_wall_ms"]
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            (params, opt, metrics), syncs, sites = count_syncs(
+                lambda: step(params, opt, batch))
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        rows.append(dict(step=s, ms=ms, traced=syncs is None,
+                         pack_ms=pack_ms, tokens_per_s=B * S / (ms / 1e3),
+                         model_flops_share=step_flops / (ms / 1e3)
+                         / BF16_PEAK_FLOPS,
+                         host_syncs=syncs, host_sync_sites=sites,
+                         loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"])))
+    launches = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows]
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"lm_encdec_train_full: losses {losses}, grad norms {norms}")
+    require(losses[-1] < losses[0],
+            f"lm_encdec_train_full: last loss {losses[-1]} >= first "
+            f"{losses[0]}")
+    require(launches["fused_hop"] == args.length * n_steps
+            and launches["weight_prefix"] == 0,
+            f"lm_encdec_train_full: launches {launches}")
+    out = dict(arch=mcfg.name, params=sum(p.numel() for p in params.values()),
+               params_analytic=M.count_params_analytic(mcfg),
+               layers=mcfg.num_layers, encoder_layers=mcfg.encoder_layers,
+               dtype=mcfg.dtype, remat=mcfg.remat, batch=B, seq=S,
+               frames=list(frames.shape), walks_per_step=LM_TRAIN["walks"],
+               steps=n_steps, init_seconds=init_s, step_flops=step_flops,
+               step_flops_by_part=flops, per_step=rows,
+               first_loss=losses[0], last_loss=losses[-1],
+               launches=launches, peak_mem_gib=peak,
+               train_step_profile=step_profile,
+               peak_source="989 TFLOP/s dense bf16, NVIDIA H100 SXM data "
+                           "sheet, 700 W",
+               phase_seconds=time.perf_counter() - t_phase)
+    del model, params, opt, step, batch, frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_encdec_vlm_serve_full(engine, args, dev) -> dict:
+    """seamless-m4t-medium at full size and qwen2-vl-72b at full width on
+    2 of its 80 layers, each drawn straight into bf16 slab by slab, each
+    on one 2^14 × 80 walk batch of the main path's final window (fused
+    path). seamless: a prefill of 16 × 512 tokens over 16 × ENC_FRAMES
+    frames, the decode state's memory set by ``run_encoder`` on those
+    frames, the cache filled by decoding the prompts, then greedy steps.
+    qwen2-vl: a prefill of 4 × (1024 patches + 1024 tokens), a cache at
+    batch 64 filled by 16 text steps (M-RoPE at ``(p, p, p)``), then
+    greedy steps. The greedy steps run under
+    ``set_sync_debug_mode("error")``, one traced. Reads init seconds and
+    peak (required within the parameter bytes plus one slab's draw),
+    prefill ms, the encoder's ms, decode ms a step against its bound by
+    bytes and by operations (``decode_bounds``), host syncs a step
+    (required 0) and the decoded tokens (required in the vocabulary)."""
+    import dataclasses
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import WalkConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as M
+    from repro_torch.train.train_loop import (make_prefill_step,
+                                              make_serve_step)
+    t_phase = time.perf_counter()
+    wcfg = WalkConfig(num_walks=LM_TRAIN["walks"], max_length=args.length,
+                      start_mode="nodes")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaf = TL.truncated_normal(prng.PRNGKey(0), (2 * TL.INIT_SLAB,), 0.01,
+                               dev, torch.bfloat16)
+    slab_bytes = torch.cuda.max_memory_allocated() - base \
+        - leaf.numel() * leaf.element_size()
+    del leaf
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    out = dict(slab_elements=TL.INIT_SLAB, slab_draw_bytes=slab_bytes)
+    runtime.reset_launches()
+    for i, (arch, c) in enumerate(LM_ENCDEC_SERVE):
+        t_model = time.perf_counter()
+        walks = engine.sample_walks(wcfg)
+        nodes = walks.nodes.cpu().numpy()
+        lengths = walks.lengths.cpu().numpy()
+        del walks
+        cfg = get_config(arch)
+        if c["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=c["layers"])
+        P, L, Bd = c["prompts"], c["prompt_len"], c["decode_batch"]
+        fill, n_new = c["fill"], c["new_tokens"]
+        toks, _ = walks_to_lm_batch(nodes, lengths, L, P, cfg.vocab_size,
+                                    seed=800 + i)
+        prompts = torch.from_numpy(toks).to(dev)
+        if (Bd, fill) == (P, L):        # the cache filled by the prompts
+            dprompts = prompts
+        else:
+            toks, _ = walks_to_lm_batch(nodes, lengths, fill, Bd,
+                                        cfg.vocab_size, seed=900 + i)
+            dprompts = torch.from_numpy(toks).to(dev)
+        extra = modality_inputs(cfg, P, prng.PRNGKey(50 + i), dev,
+                                n_patches=c["patches"])
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, prng.PRNGKey(60 + i), dev,
+                              dtype=M.compute_dtype(cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        params = M.params_of(model)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        require(init_peak <= param_bytes + slab_bytes + INIT_SLACK,
+                f"lm_encdec_vlm_serve_full {arch}: init peak {init_peak} B "
+                f"over {param_bytes} B of parameters + {slab_bytes} B of a "
+                "slab")
+
+        prefill = make_prefill_step(model)
+        prefill(params, {"tokens": prompts[:, :8], **extra})  # warm-up
+        pre_logits, prefill_ms = timed(
+            lambda: prefill(params, {"tokens": prompts, **extra}))
+        state = M.init_decode_state(model, Bd, c["max_seq"])
+        encoder_ms = None
+        if cfg.family == "enc_dec":
+            with torch.no_grad():
+                (enc_out, enc_pos), encoder_ms = timed(
+                    lambda: M.run_encoder(model, extra["frames"]))
+            state = state._replace(enc_out=enc_out, enc_pos=enc_pos)
+
+        def fill_cache(state=state):
+            with torch.no_grad():
+                for t in range(fill):
+                    lg, state = M.decode_step(model, dprompts[:, t:t + 1],
+                                              state)
+            return lg
+        logits, fill_ms = timed(fill_cache)
+        serve = make_serve_step(model)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+        def decode(tok, state):
+            toks_out = []
+            for _ in range(n_new):
+                tok, state = serve(params, tok, state)
+                toks_out.append(tok)
+            return toks_out, tok, state
+
+        (out_toks, tok, state), decode_total = timed(
+            lambda: no_host_sync(decode)(tok, state))
+        decode_ms = decode_total / n_new
+        _, syncs, sites = count_syncs(lambda: serve(params, tok, state))
+        require(syncs == 0, f"lm_encdec_vlm_serve_full {arch}: a decode "
+                            f"step synced {sites}")
+        prof = profile_call(lambda: serve(params, tok, state))
+        gen = torch.cat(out_toks, dim=1)
+        require(bool((gen >= 0).all() and (gen < cfg.vocab_size).all()),
+                f"lm_encdec_vlm_serve_full {arch}: a token is out of the "
+                "vocabulary")
+        require(bool(torch.isfinite(pre_logits.float()).all())
+                and bool(torch.isfinite(logits.float()).all()),
+                f"lm_encdec_vlm_serve_full {arch}: non-finite logits")
+        bounds = decode_bounds(model, state, Bd)
+        row = dict(
+            layers=cfg.num_layers, encoder_layers=cfg.encoder_layers
+            if cfg.family == "enc_dec" else 0, dtype=cfg.dtype,
+            params=sum(p.numel() for p in params.values()),
+            params_analytic=M.count_params_analytic(cfg),
+            param_gib=param_bytes / 2**30, init_seconds=init_s,
+            init_peak_gib=init_peak / 2**30,
+            init_over_params_gib=(init_peak - param_bytes) / 2**30,
+            init_allowance_gib=(param_bytes + slab_bytes + INIT_SLACK)
+            / 2**30,
+            prompts=P, prompt_len=L, patches=c["patches"],
+            frames=list(extra["frames"].shape) if "frames" in extra
+            else None,
+            prefill_ms=prefill_ms,
+            prefill_tokens_per_s=P * (L + c["patches"]) / (prefill_ms / 1e3),
+            encoder_ms=encoder_ms,
+            decode_batch=Bd, max_seq=c["max_seq"], cache_fill=fill,
+            cache_fill_ms_per_step=fill_ms / fill,
+            prefill_vs_decode_max_abs=float(
+                (logits.float() - pre_logits.float()).abs().max())
+            if dprompts is prompts else None,
+            new_tokens=n_new, decode_ms_per_step=decode_ms,
+            decode_tokens_per_s=Bd / (decode_ms / 1e3),
+            decode_of_bound=decode_ms / bounds["bound_ms"],
+            decode_bounds=bounds,
+            host_syncs_per_decode_step=syncs, decode_step_profile=prof,
+            final_pos=int(state.pos),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_over_window_gib=(torch.cuda.max_memory_allocated() - base)
+            / 2**30, window_gib=base / 2**30,
+            seconds=time.perf_counter() - t_model)
+        out[arch] = row
+        del model, params, state, prefill, serve, pre_logits, logits, tok
+        del out_toks, gen, prompts, dprompts, extra
+        torch.cuda.empty_cache()
+    launches = dict(runtime.LAUNCHES)
+    require(launches["fused_hop"] == args.length * len(LM_ENCDEC_SERVE)
+            and launches["weight_prefix"] == 0
+            and launches["walk_step_tiled"] == 0,
+            f"lm_encdec_vlm_serve_full: launches {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def lm_encdec_vlm_cuda_equals_cpu(dev) -> dict:
+    """seamless-m4t-medium and qwen2-vl-72b ``reduced`` to 2 layers
+    (seamless: 2 encoder and 2 decoder layers) at d_model 1024 with a
+    vocabulary of 8192, float32, TF32 off, the same parameters on the
+    card and the CPU, on 2 × 64 tokens (seamless over 2 × ENC_FRAMES
+    frames, qwen2-vl after 24 patches): one train step from a shared
+    state at ``lm_cuda_equals_cpu``'s tolerances; 8 decode steps'
+    logits within ``LM_EQ_LOGITS_TOL``, prefill vs decode on the card
+    within ``LM_EQ_CONSISTENCY`` (seamless with its encoder memory,
+    qwen2-vl with 0 patches, as tests/test_arch_smoke.py), 4 greedy
+    tokens equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    e = LM_ENCDEC_EQ
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for i, arch in enumerate(("seamless-m4t-medium", "qwen2-vl-72b")):
+            t_arch = time.perf_counter()
+            cfg = dataclasses.replace(
+                reduced(get_config(arch), layers=e["layers"],
+                        d_model=e["d_model"], vocab=e["vocab"]),
+                dtype="float32")
+            card = M.init_params(cfg, prng.PRNGKey(70 + i), dev)
+            host = M.TransformerLM(cfg, None, "cpu")
+            p_card = M.params_of(card)
+            p_host = {n: t.cpu() for n, t in p_card.items()}
+            M.bind_params(host, p_host)
+            rng = np.random.default_rng(9)
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, e["seq"])).astype(np.int32))
+                for k in ("tokens", "labels")}
+            batch.update(modality_inputs(cfg, 2, prng.PRNGKey(80 + i),
+                                         "cpu", n_patches=e["patches"]))
+            gaps, unresolved, bound = _train_steps(card, host, p_host, batch,
+                                                   dev, n_steps=1)
+            require(_train_gaps_hold(gaps),
+                    f"lm_encdec_vlm_cuda_equals_cpu {arch}: {gaps}")
+            logit_gap, consist, consist_ok, greedy_equal = _decode_card_cpu(
+                card, host, p_card, p_host, batch["tokens"], dev,
+                frames=batch.get("frames"))
+            require(logit_gap <= LM_EQ_LOGITS_TOL and consist_ok
+                    and greedy_equal,
+                    f"lm_encdec_vlm_cuda_equals_cpu {arch}: logits "
+                    f"{logit_gap}, prefill/decode {consist}, greedy "
+                    f"{greedy_equal}")
+            out[arch] = dict(
+                config=dict(layers=cfg.num_layers,
+                            encoder_layers=cfg.encoder_layers
+                            if cfg.family == "enc_dec" else 0,
+                            d_model=cfg.d_model, vocab=cfg.vocab_size,
+                            heads=cfg.attention.n_heads,
+                            head_dim=cfg.attention.head_dim,
+                            rope=cfg.attention.rope),
+                params=sum(v.numel() for v in p_host.values()),
+                batch={k: list(v.shape) for k, v in batch.items()},
+                steps=1, gaps={k: gaps[k] for k in TRAIN_GAP_KEYS},
+                worst_leaf=gaps["worst_leaf"],
+                loss_rel=gaps["loss"], grad_norm_rel=gaps["grad_norm"],
+                unresolved_elements=unresolved,
+                unresolved_max_of_step_bound=gaps["unresolved_max_abs"],
+                step_bound=bound, decode_logits_of_max=logit_gap,
+                prefill_vs_decode_max_abs=consist, greedy_equal=True,
+                seconds=time.perf_counter() - t_arch)
+            del card, host, p_card, p_host
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["tolerances"] = dict(loss_rtol=LM_EQ_LOSS_RTOL,
+                             leaf_tol=LM_EQ_LEAF_TOL,
+                             logits_tol=LM_EQ_LOGITS_TOL,
+                             consistency=LM_EQ_CONSISTENCY,
+                             unresolved=LM_EQ_UNRESOLVED)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4601,11 +5174,19 @@ def main(argv=None) -> int:
     lm_ssm_train = lm_ssm_train_full(lm_engine, args, dev)
     emit("lm_ssm_train_full", **lm_ssm_train, cuts=cuts)
     lm_ssm_serve = lm_ssm_serve_full(lm_engine, args, dev)
-    del lm_engine
-    torch.cuda.empty_cache()
     emit("lm_ssm_serve_full", **lm_ssm_serve)
     emit("lm_ssm_cuda_equals_cpu", **lm_ssm_cuda_equals_cpu(dev))
-    emit("total", seconds=time.perf_counter() - t_start)
+
+    # ---- phase 14: the enc-dec and VLM families (cross-attention, M-RoPE)
+    lm_encdec_train = lm_encdec_train_full(lm_engine, args, dev)
+    emit("lm_encdec_train_full", **lm_encdec_train, cuts=cuts)
+    lm_encdec_serve = lm_encdec_vlm_serve_full(lm_engine, args, dev)
+    del lm_engine
+    torch.cuda.empty_cache()
+    emit("lm_encdec_vlm_serve_full", **lm_encdec_serve)
+    emit("lm_encdec_vlm_cuda_equals_cpu",
+         **lm_encdec_vlm_cuda_equals_cpu(dev))
+    emit("total", seconds=time.perf_counter() - t_start, primer=PRIMER)
 
     # ---- kernels line, card line, contract line --------------------------
     # tiers S and L are one launch, fused_hop: one row for each TPU kernel
@@ -4627,6 +5208,10 @@ def main(argv=None) -> int:
              lm_moe_serve_launches=lm_moe["launches"]["fused_hop"],
              lm_ssm_train_launches=lm_ssm_train["launches"]["fused_hop"],
              lm_ssm_serve_launches=lm_ssm_serve["launches"]["fused_hop"],
+             lm_encdec_train_launches=lm_encdec_train["launches"][
+                 "fused_hop"],
+             lm_encdec_vlm_serve_launches=lm_encdec_serve["launches"][
+                 "fused_hop"],
              **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
@@ -4647,6 +5232,10 @@ def main(argv=None) -> int:
              lm_moe_serve_launches=lm_moe["launches"]["weight_prefix"],
              lm_ssm_train_launches=lm_ssm_train["launches"]["weight_prefix"],
              lm_ssm_serve_launches=lm_ssm_serve["launches"][
+                 "weight_prefix"],
+             lm_encdec_train_launches=lm_encdec_train["launches"][
+                 "weight_prefix"],
+             lm_encdec_vlm_serve_launches=lm_encdec_serve["launches"][
                  "weight_prefix"],
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]

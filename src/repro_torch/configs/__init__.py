@@ -1,8 +1,8 @@
 """Config registry: ``get_config(name)`` / ``list_archs()``.
 
 One module per architecture of the reference, each exposing ``CONFIG``
-(copied as data). Only ``family="dense"`` configs build a model in the
-port so far (``repro_torch.models``).
+(copied as data). Every config builds a model in the port
+(``repro_torch.models``).
 """
 from __future__ import annotations
 

@@ -164,12 +164,17 @@ def opt_state_from_ref(state, device=None) -> OptState:
 # ---------------------------------------------------------------------------
 #
 # The reference's LM params are a tree {"embed": {"table"}, "final_norm",
-# "layers": [segment trees], "unembed"?}; segment si holds
-# {"pos{j}": layer tree} with every leaf stacked [n_periods, ...] by
-# jax.vmap. The port's ``TransformerLM`` unstacks them: its parameter
+# "layers": [segment trees], "unembed"?, and for enc_dec "enc_layers":
+# [segment trees], "enc_norm"}; segment si holds {"pos{j}": layer tree}
+# with every leaf stacked [n_periods, ...] by jax.vmap (an enc-dec
+# decoder layer's tree also holds "norm_x" and "cross"). The port's
+# ``TransformerLM`` unstacks them: its parameter
 # ``layers.{si}.{period}.pos{j}.<path>`` is row ``period`` of the leaf at
-# ``layers/{si}/pos{j}/<path>``; every other parameter ``a.b`` is the leaf
-# at ``a/b``. Optimiser moments have the params' structure on both sides.
+# ``layers/{si}/pos{j}/<path>``, and ``enc_layers`` likewise; every other
+# parameter ``a.b`` is the leaf at ``a/b``. Optimiser moments have the
+# params' structure on both sides.
+
+_STACKS = ("layers", "enc_layers")
 
 
 def _lm_skeleton(cfg):
@@ -193,8 +198,8 @@ def _ref_leaf(tree, name: str):
     """(leaf, period) of the reference tree for a port parameter name;
     period is None outside the stacked layers."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        node = tree["layers"][int(parts[1])]
+    if parts[0] in _STACKS:
+        node = tree[parts[0]][int(parts[1])]
         period, parts = int(parts[2]), parts[3:]
     else:
         node, period = tree, None
@@ -233,14 +238,14 @@ def lm_tree_to_ref(named, cfg):
         return node
 
     skel = _lm_skeleton(cfg)
-    tree = {n: module_tree(child, n + ".")
-            for n, child in skel.named_children() if n != "layers"}
-    layers = []
-    for si, seg in enumerate(skel.layers):
-        periods = [module_tree(period, f"layers.{si}.{pi}.")
-                   for pi, period in enumerate(seg)]
-        layers.append(_stack_trees(periods))
-    tree["layers"] = layers
+    tree = {}
+    for n, child in skel.named_children():
+        if n not in _STACKS:
+            tree[n] = module_tree(child, n + ".")
+            continue
+        tree[n] = [_stack_trees([module_tree(period, f"{n}.{si}.{pi}.")
+                                 for pi, period in enumerate(seg)])
+                   for si, seg in enumerate(child)]
     return tree
 
 
@@ -298,7 +303,9 @@ def decode_state_from_ref(state, cfg, device=None, pos: int = 0):
     ``MLSTMState`` ``C``, ``n``, ``m``; ``SLSTMState`` ``c``, ``n``,
     ``h``, ``m``) keep their layout. The position is the attention
     caches' (every layer's is the same); a model without attention
-    tracks none in the reference, so it is ``pos``."""
+    tracks none in the reference, so it is ``pos``. An enc-dec state's
+    ``enc_out`` and ``enc_pos`` (the encoder memory) come across as they
+    are."""
     from repro_torch.models.attention import KVCache, MLACache
     from repro_torch.models.model import DecodeState
     from repro_torch.models.ssm import MambaState, MLSTMState, SLSTMState
@@ -326,6 +333,10 @@ def decode_state_from_ref(state, cfg, device=None, pos: int = 0):
                     positions.append(int(np.asarray(_get(c, "pos"))[p]))
     if len(set(positions)) > 1:
         raise ValueError(f"layers at different positions: {positions}")
+    memory = {f: _torch_from_array(state[f], device)
+              for f in ("enc_out", "enc_pos")
+              if isinstance(state, dict) and state.get(f) is not None}
     return DecodeState(caches=caches,
                        pos=torch.tensor(positions[0] if positions else pos,
-                                        dtype=torch.int32, device=device))
+                                        dtype=torch.int32, device=device),
+                       **memory)

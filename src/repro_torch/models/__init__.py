@@ -2,7 +2,8 @@
 (norms, rotary embeddings, MLP, embeddings), ``attention`` (GQA, MLA),
 ``moe`` (routed, shared and dense-residual experts), ``ssm`` (mamba,
 mLSTM, sLSTM), ``transformer`` (layer specs, segments, blocks) and
-``model`` (the LM API). The dense, MoE, SSM (xLSTM) and hybrid (Jamba)
-families are ported; the enc-dec, VLM and audio families are refused
-with ``NotImplementedError`` until ROADMAP queue 1 item 5d ports
-them."""
+``model`` (the LM API). Every family of the registry is ported: dense,
+MoE, SSM (xLSTM), hybrid (Jamba), enc-dec (SeamlessM4T: the encoder
+stack over audio frames, cross-attention) and VLM (Qwen2-VL: patch
+embeddings, M-RoPE); the audio and vision frontends are the
+reference's stubs, precomputed embeddings in the batch."""

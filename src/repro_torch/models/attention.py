@@ -1,5 +1,6 @@
-"""Attention: GQA (optional QKV bias, RoPE / M-RoPE) and MLA
-(DeepSeek-V2) in two regimes, PyTorch port of repro/models/attention.py:
+"""Attention: GQA (optional QKV bias, RoPE / M-RoPE), MLA (DeepSeek-V2)
+and GQA cross-attention over an encoder memory, in two regimes, PyTorch
+port of repro/models/attention.py:
 
 * ``train/prefill`` — memory-efficient chunked attention (a flash-style
   running softmax over KV blocks, looped over Q blocks), in plain torch
@@ -164,24 +165,34 @@ class Attention(nn.Module):
             self.bk = nn.Parameter(torch.zeros(Hkv, D, device=device))
             self.bv = nn.Parameter(torch.zeros(Hkv, D, device=device))
 
-    def _qkv(self, x, tables):
-        q, k, v = (_project(w, x) for w in (self.wq, self.wk, self.wv))
+    def _qkv(self, x, tables, kv=None):
+        """q from ``x``; k and v from ``x`` or, for cross-attention, from
+        ``kv = (k_src, v_src, kv_tables)``; the biases added; q rotated by
+        ``tables`` and k by its own (``kv_tables``, or ``tables``)."""
+        k_src, v_src, k_tables = (x, x, tables) if kv is None else kv
+        q, k, v = (_project(w, src) for w, src in
+                   ((self.wq, x), (self.wk, k_src), (self.wv, v_src)))
         if self.att.qkv_bias:
             q, k, v = (y + b.to(x.dtype) for y, b in
                        ((q, self.bq), (k, self.bk), (v, self.bv)))
         if tables is not None:
-            q, k = rotate(q, *tables), rotate(k, *tables)
+            q = rotate(q, *tables)
+        if k_tables is not None:
+            k = rotate(k, *k_tables)
         return q, k, v
 
     def _out(self, out):
         """einsum("bshk,hkd->bsd")."""
         return out.flatten(2) @ self.wo.to(out.dtype).flatten(0, 1)
 
-    def forward(self, x, tables, *, causal: bool = True,
-                window: int = 0) -> torch.Tensor:
+    def forward(self, x, tables, *, causal: bool = True, window: int = 0,
+                kv=None) -> torch.Tensor:
         """Full-sequence forward (train / prefill); ``tables`` are the
-        positional rotation tables (``layers.positional_tables``)."""
-        q, k, v = self._qkv(x, tables)
+        positional rotation tables (``layers.positional_tables``). With
+        ``kv = (k_src, v_src, kv_tables)`` it is cross-attention over an
+        encoder memory (``causal=False``): the reference runs it so in
+        decode too, a 1-token query through the same chunked softmax."""
+        q, k, v = self._qkv(x, tables, kv)
         return self._out(_chunked_attention(q, k, v, causal=causal,
                                             window=window))
 

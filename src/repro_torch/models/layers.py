@@ -173,13 +173,20 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int):
 
 
 def positional_tables(att: AttentionConfig, positions: torch.Tensor):
-    """The rotation tables of ``att.rope == "rope"`` for ``positions``
-    (over ``qk_rope_head_dim`` for MLA, ``head_dim`` otherwise), or None
-    ("none" / "sinusoidal": added at the embedding, not in attention;
-    "mrope" waits for its positions, ROADMAP queue 1 item 5d)."""
+    """The rotation tables of ``att.rope`` for ``positions``: ``"rope"``
+    over ``qk_rope_head_dim`` for MLA, ``head_dim`` otherwise, positions
+    ``[..., S]``; ``"mrope"`` over ``head_dim`` by ``mrope_sections``,
+    positions ``[..., S, 3]``; None for ``"none"`` and ``"sinusoidal"``
+    (added at the embedding, not in attention), as the reference's
+    ``apply_positional``. A cross-attention's keys take the tables of the
+    encoder memory's own positions (``enc_pos``), as the reference
+    rotates them."""
     if att.rope == "rope":
         dim = att.qk_rope_head_dim if att.kind == "mla" else att.head_dim
         return rope_tables(positions, dim, att.rope_theta)
+    if att.rope == "mrope":
+        return mrope_tables(positions, att.head_dim, att.rope_theta,
+                            att.mrope_sections)
     return None
 
 

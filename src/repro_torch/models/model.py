@@ -1,8 +1,10 @@
 """Top-level model API, PyTorch port of repro/models/model.py, for
-``family="dense"``, ``"moe"`` (MoE FFNs, MLA or GQA attention),
-``"ssm"`` (xLSTM's mLSTM and sLSTM) and ``"hybrid"`` (mamba and
-attention, dense and MoE FFNs; Jamba). The enc-dec and VLM families wait
-for ROADMAP queue 1 item 5d.
+every family of the registry: ``"dense"``, ``"moe"`` (MoE FFNs, MLA or
+GQA attention), ``"ssm"`` (xLSTM's mLSTM and sLSTM), ``"hybrid"``
+(mamba and attention, dense and MoE FFNs; Jamba), ``"enc_dec"`` (an
+encoder stack over audio frames and a decoder with cross-attention;
+SeamlessM4T) and ``"vlm"`` (patch embeddings before the text, M-RoPE;
+Qwen2-VL).
 
 * ``init_params(cfg, key, device)``      — a ``TransformerLM`` (float32
   masters, drawn with the reference's threefry keys; ``dtype=`` stores
@@ -19,15 +21,19 @@ for ROADMAP queue 1 item 5d.
 ``num_groups``: an MoE layer dispatches its tokens in ``gcd(tokens,
 num_groups)`` groups.
 
-Batch dict keys: ``tokens`` [B, S] (+ ``labels`` for train), integer
-tensors on the model's device. The model's parameters are float32 and
+Batch dict keys, tensors on the model's device: ``tokens`` [B, S]
+(+ ``labels`` for train), integers; for ``vlm`` also ``patches``
+[B, n_patches, d_model] (at most ``N_PATCHES``; the text is the last
+``S`` positions), for ``enc_dec`` ``frames`` [B, ENC_FRAMES, d_model]:
+the modality frontends are stubs, as in the reference, and these are
+their precomputed embeddings. The model's parameters are float32 and
 are cast to ``cfg.dtype`` where they are applied; ``cast_for_serving``
 stores them in that dtype once, for a model that only serves.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,11 +43,13 @@ from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.transformer import LayerCache
+from repro_torch.models.transformer import LayerCache, Memory
 from repro_torch.models.layers import (Embedding, Norm, embed,
                                        positional_tables,
                                        sinusoidal_positions)
 
+N_PATCHES = 1024        # VLM stub: patch tokens prepended to text
+ENC_FRAMES = 1536       # audio stub: encoder frame count
 SEQ_CHUNK = 256         # sequence-chunked cross-entropy block
 
 
@@ -49,10 +57,19 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _encoder_segments(cfg: ModelConfig) -> List[tfm.Segment]:
+    """The enc-dec encoder: ``encoder_layers`` dense attention layers."""
+    return [tfm.Segment(cfg.encoder_layers,
+                        (tfm.LayerSpec("attn", "dense"),))]
+
+
 class TransformerLM(nn.Module):
     """``embed``, ``layers`` (``layers[si][period]["pos{j}"]``),
     ``final_norm`` and, untied, ``unembed``: the reference's parameter
-    tree with each segment unstacked over its periods. On CUDA unless
+    tree with each segment unstacked over its periods; for ``enc_dec``
+    also ``enc_layers`` (the encoder's stack, drawn from the init key's
+    ``split(·, 8)[3]``) and ``enc_norm``, and the decoder's attention
+    blocks carry ``norm_x`` and ``cross``. On CUDA unless
     ``device`` names another; ``key`` None leaves it uninitialised.
     ``dtype`` (float32 by default) stores every drawn matrix in that
     dtype, each the float32 draw cast once and a large one drawn slab by
@@ -71,11 +88,16 @@ class TransformerLM(nn.Module):
         self.embed = Embedding(ks[0], cfg.vocab_size, cfg.d_model, device,
                                dtype)
         self.final_norm = Norm(cfg.norm, cfg.d_model, device)
+        enc_dec = cfg.family == "enc_dec"
         self.layers = tfm.init_stack(ks[1], cfg, self.segments, device,
-                                     dtype)
+                                     dtype, cross_attention=enc_dec)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(ks[2], cfg.vocab_size, cfg.d_model,
                                      device, dtype)
+        if enc_dec:
+            self.enc_layers = tfm.init_stack(
+                ks[3], cfg, _encoder_segments(cfg), device, dtype)
+            self.enc_norm = Norm(cfg.norm, cfg.d_model, device)
 
     @property
     def device(self) -> torch.device:
@@ -146,25 +168,91 @@ def cast_for_serving(model: TransformerLM) -> TransformerLM:
 # ---------------------------------------------------------------------------
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
+def _sequence_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None] \
         .expand(B, S)
 
 
-def forward(model: TransformerLM, batch, *, num_groups: int = 1):
-    """Full-sequence forward. Returns (pre-logits x, positions, aux): aux
-    is the MoE layers' load-balancing loss, float32 (0 without MoE)."""
+def _mrope_positions(B: int, S: int, n_patches: int,
+                     device) -> torch.Tensor:
+    """(t, h, w) positions, int32 ``[B, S, 3]``: patch ``i`` on a grid at
+    ``(0, i // side, i % side)`` (``side`` the floor of the root, so a
+    non-square count runs past ``side`` rows, as the reference's does),
+    then the text sequential at ``t = n_patches + j`` in all three (the
+    decode path's position is the cache write index)."""
+    side = max(int(math.sqrt(max(n_patches, 1))), 1)
+    i = torch.arange(n_patches, device=device)
+    patch_pos = torch.stack([torch.zeros_like(i), i // side, i % side], -1)
+    t = n_patches + torch.arange(S - n_patches, device=device)
+    text_pos = torch.stack([t, t, t], -1)
+    pos = torch.cat([patch_pos, text_pos], 0)
+    return pos[None].expand(B, S, 3).to(torch.int32)
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, n_patches: int = 0,
+               device=None) -> torch.Tensor:
+    if cfg.attention.rope == "mrope":
+        return _mrope_positions(B, S, n_patches, device)
+    return _sequence_positions(B, S, device)
+
+
+def _input_embedding(model: TransformerLM, batch, dtype):
+    """Token (and, for ``vlm``, patch) input embedding. Returns (x
+    ``[B, S, d]``, positions): the patches, cast to ``dtype``, sit before
+    the tokens; a ``"sinusoidal"`` signal is added after the cast."""
     cfg = model.cfg
-    dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = embed(model.embed, tokens, dtype)
-    pos = _positions(B, S, x.device)
+    n_patches = 0
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dtype)
+        n_patches = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    pos = _positions(cfg, B, x.shape[1], n_patches, x.device)
     if cfg.attention.rope == "sinusoidal":
         x = x + sinusoidal_positions(pos, cfg.d_model).to(dtype)
+    return x, pos
+
+
+def run_encoder(model: TransformerLM, frames: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The enc-dec encoder over ``frames [B, S_enc, d]``: the frames cast
+    to the compute dtype plus the sinusoidal signal, the encoder stack
+    (not causal; each period recomputed in the backward under
+    ``remat="block"``), ``enc_norm``. Returns (enc_out ``[B, S_enc, d]``,
+    enc_pos int32 ``[B, S_enc]``), a decode state's memory."""
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    B, S_enc, _ = frames.shape
+    pos = _sequence_positions(B, S_enc, frames.device)
+    x = frames.to(dtype) + sinusoidal_positions(pos, cfg.d_model).to(dtype)
+    x, _ = tfm.apply_stack(model.enc_layers, cfg, x,
+                           positional_tables(cfg.attention, pos),
+                           causal=False)
+    return model.enc_norm(x), pos
+
+
+def _memory(cfg: ModelConfig, enc_out, enc_pos) -> Optional[Memory]:
+    """The decoder's view of an encoder memory: its keys rotate at the
+    memory's own positions."""
+    return None if enc_out is None \
+        else Memory(enc_out, positional_tables(cfg.attention, enc_pos))
+
+
+def forward(model: TransformerLM, batch, *, num_groups: int = 1):
+    """Full-sequence forward. Returns (pre-logits x, positions, aux): aux
+    is the MoE layers' load-balancing loss, float32 (0 without MoE). An
+    enc-dec model first runs its encoder on ``batch["frames"]``."""
+    cfg = model.cfg
+    dtype = compute_dtype(cfg)
+    x, pos = _input_embedding(model, batch, dtype)
+    memory = None
+    if cfg.family == "enc_dec":
+        memory = _memory(cfg, *run_encoder(model, batch["frames"]))
     x, aux = tfm.apply_stack(model.layers, cfg, x,
                              positional_tables(cfg.attention, pos),
-                             num_groups)
+                             num_groups, causal=True, memory=memory)
     x = model.final_norm(x)
     return x, pos, aux
 
@@ -208,6 +296,7 @@ def cross_entropy_chunked(x, table, targets, *, chunk: int = SEQ_CHUNK):
 def loss_fn(model: TransformerLM, batch, *, num_groups: int = 1):
     x, _, aux = forward(model, batch, num_groups=num_groups)
     labels = batch["labels"]
+    # vlm: the loss is over the text, the last S_l positions
     S_l = labels.shape[1]
     loss = cross_entropy_chunked(x[:, -S_l:, :], model.out_table(), labels)
     return loss + aux
@@ -221,16 +310,32 @@ def loss_fn(model: TransformerLM, batch, *, num_groups: int = 1):
 class DecodeState(NamedTuple):
     caches: List[LayerCache]  # one cache or SSM state per layer, in order
     pos: torch.Tensor       # int32, 0-d: tokens already written
+    # enc_dec: the encoder memory the cross-attention reads each step
+    # ([B, S_enc, d] in the compute dtype, and its int32 [B, S_enc]
+    # positions); None for the other families. A caller who runs the
+    # encoder replaces both (``state._replace``); it is not masked
+    enc_out: Optional[torch.Tensor] = None
+    enc_pos: Optional[torch.Tensor] = None
 
 
 def init_decode_state(model: TransformerLM, batch: int,
                       max_seq: int) -> DecodeState:
+    """Zero caches and states at position 0; for ``enc_dec`` the
+    reference's placeholder memory, ``ENC_FRAMES`` zero frames at
+    positions ``0 .. ENC_FRAMES − 1``."""
     cfg = model.cfg
     dev = model.device
+    dtype = compute_dtype(cfg)
+    enc_out = enc_pos = None
+    if cfg.family == "enc_dec":
+        enc_out = torch.zeros((batch, ENC_FRAMES, cfg.d_model), dtype=dtype,
+                              device=dev)
+        enc_pos = _sequence_positions(batch, ENC_FRAMES, dev)
     return DecodeState(
         caches=tfm.init_stack_cache(cfg, model.segments, batch, max_seq,
-                                    compute_dtype(cfg), dev),
-        pos=torch.zeros((), dtype=torch.int32, device=dev))
+                                    dtype, dev),
+        pos=torch.zeros((), dtype=torch.int32, device=dev),
+        enc_out=enc_out, enc_pos=enc_pos)
 
 
 def decode_step(model: TransformerLM, tokens, state: DecodeState, *,
@@ -238,7 +343,9 @@ def decode_step(model: TransformerLM, tokens, state: DecodeState, *,
     """tokens: [B, 1]. Returns (logits [B, 1, V], state): the caches and
     SSM states are written and ``pos`` advanced in place, on the device,
     so the step reads nothing back to the host. Every layer sits at the
-    same position, so the rotation tables are computed once a step."""
+    same position, so the rotation tables are computed once a step
+    (M-RoPE's at ``(p, p, p)``: a decode step embeds tokens only). An
+    enc-dec decoder's cross-attention reads ``state.enc_out``."""
     cfg = model.cfg
     dtype = compute_dtype(cfg)
     B = tokens.shape[0]
@@ -246,9 +353,12 @@ def decode_step(model: TransformerLM, tokens, state: DecodeState, *,
     posf = state.pos.expand(B, 1)
     if cfg.attention.rope == "sinusoidal":
         x = x + sinusoidal_positions(posf, cfg.d_model).to(dtype)
-    tables = positional_tables(cfg.attention, posf)
+    qpos = state.pos.expand(B, 1, 3) if cfg.attention.rope == "mrope" \
+        else posf
+    tables = positional_tables(cfg.attention, qpos)
     x = tfm.decode_stack(model.layers, cfg, x, state.caches, state.pos,
-                         tables, num_groups)
+                         tables, num_groups,
+                         _memory(cfg, state.enc_out, state.enc_pos))
     x = model.final_norm(x)
     state.pos.add_(1)
     return logits_from_hidden(model, x), state

@@ -11,14 +11,14 @@ a Python loop. ``repro_torch.interop`` unstacks and restacks.
 
 The port builds every layer kind: ``attn`` (GQA or MLA), ``mamba``,
 ``mlstm`` and ``slstm`` (``models/ssm.py``), with ``ffn`` dense, moe or
-none; a stack's forward returns the MoE layers' aux loss summed in layer
-order. Cross-attention and M-RoPE raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+none, and the enc-dec decoder's cross-attention (``cross_attention``);
+a stack's forward returns the MoE layers' aux loss summed in layer
+order, and runs causal (the decoders) or not (the encoder).
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,15 +26,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (DecodeSlot, KVCache, MLACache,
-                                          cache_len, decode_slot, init_cache,
-                                          make_attention)
+from repro_torch.models.attention import (Attention, DecodeSlot, KVCache,
+                                          MLACache, cache_len, decode_slot,
+                                          init_cache, make_attention)
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import (SSM_BLOCKS, SSM_INIT_STATE, MambaState,
                                     MLSTMState, SLSTMState)
 
 LayerCache = Union[KVCache, MLACache, MambaState, MLSTMState, SLSTMState]
+
+
+class Memory(NamedTuple):
+    """An encoder's output as the decoder's cross-attention reads it."""
+    out: torch.Tensor        # [B, S_enc, d_model], the compute dtype
+    tables: Optional[tuple]  # the keys' rotation tables (None: sinusoidal)
 
 
 class LayerSpec(NamedTuple):
@@ -86,27 +92,16 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not build yet, naming the ROADMAP item:
-    enc-dec cross-attention, VLM inputs and M-RoPE (item 5d). Attention
-    layers of either kind (GQA, MLA) and mamba, mLSTM and sLSTM layers,
-    with dense, MoE or no FFN, are built."""
-    if cfg.family == "enc_dec":
-        raise NotImplementedError(
-            "cross-attention (enc-dec) is not ported yet: ROADMAP queue 1 "
-            "item 5d")
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "VLM inputs and M-RoPE positions are not ported yet: ROADMAP "
-            "queue 1 item 5d")
+    """Refuse a layer or attention kind the reference does not know.
+    Attention layers of either kind (GQA, MLA), mamba, mLSTM and sLSTM
+    layers, with dense, MoE or no FFN, cross-attention and M-RoPE are
+    built: every config of the registry."""
     for spec in layer_specs(cfg):
         if spec.kind != "attn" and spec.kind not in SSM_BLOCKS:
             raise ValueError(f"unknown layer kind {spec.kind!r}")
     if cfg.attention.kind not in ("gqa", "mla"):
         raise ValueError(
             f"unknown attention kind {cfg.attention.kind!r}")
-    if cfg.attention.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE positions are not ported yet: ROADMAP queue 1 item 5d")
 
 
 # ---------------------------------------------------------------------------
@@ -119,17 +114,26 @@ class Block(nn.Module):
     by its kind as the reference names it (``attn``: ``Attention`` or
     ``MLA`` by ``cfg.attention.kind``; ``mamba``, ``mlstm``, ``slstm``),
     and with ``ffn="dense"`` ``norm2`` and ``mlp``, with ``ffn="moe"``
-    ``norm2`` and ``moe``. ``dtype`` stores the drawn matrices (norms
-    and the SSM blocks' ``keep_float32`` leaves stay float32)."""
+    ``norm2`` and ``moe``. An attention block built with
+    ``cross_attention`` (the enc-dec decoder's) also has ``norm_x`` and
+    ``cross``, a GQA ``Attention`` drawn from the block's ``ks[1]``, run
+    after the mixer's residual and before the FFN. ``dtype`` stores the
+    drawn matrices (norms and the SSM blocks' ``keep_float32`` leaves
+    stay float32)."""
 
     def __init__(self, key, cfg: ModelConfig, spec: LayerSpec, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, cross_attention: bool = False):
         super().__init__()
         ks = prng.split(key, 6) if key is not None else [None] * 6
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg.norm, cfg.d_model, device)
+        self.cross_attention = cross_attention and spec.kind == "attn"
         if spec.kind == "attn":
             self.attn = make_attention(ks[0], cfg.attention, cfg.d_model,
+                                       device, dtype)
+            if self.cross_attention:
+                self.norm_x = Norm(cfg.norm, cfg.d_model, device)
+                self.cross = Attention(ks[1], cfg.attention, cfg.d_model,
                                        device, dtype)
         else:
             setattr(self, spec.kind, SSM_BLOCKS[spec.kind](
@@ -151,31 +155,41 @@ class Block(nn.Module):
             return x + y, aux
         return x, None
 
-    def forward(self, x, tables, num_groups: int = 1):
+    def _cross(self, x, tables, memory: Optional[Memory]):
+        """x after the cross-attention over ``memory`` (unchanged without
+        one, as the reference skips it when ``enc_out`` is None)."""
+        if not self.cross_attention or memory is None:
+            return x
+        return x + self.cross(self.norm_x(x), tables, causal=False,
+                              kv=(memory.out, memory.out, memory.tables))
+
+    def forward(self, x, tables, num_groups: int = 1, causal: bool = True,
+                memory: Optional[Memory] = None):
         """Returns (x, aux loss float32 0-d, or None without an MoE). An
         SSM block runs from the zero state; the mLSTM in its chunkwise
         form when ``cfg.ssm.chunked``."""
         h = self.norm1(x)
         kind = self.spec.kind
         if kind == "attn":
-            y = self.attn(h, tables, causal=True,
+            y = self.attn(h, tables, causal=causal,
                           window=self.cfg.attention.window)
         elif kind == "mlstm":
             y, _ = self.mlstm(h, chunked=self.cfg.ssm.chunked)
         else:
             y, _ = getattr(self, kind)(h)
-        return self._ffn(x + y, num_groups)
+        return self._ffn(self._cross(x + y, tables, memory), num_groups)
 
     def decode(self, x, cache: LayerCache, at: DecodeSlot | None, tables,
-               num_groups: int = 1):
+               num_groups: int = 1, memory: Optional[Memory] = None):
         """One token; ``cache`` (a KV cache or an SSM state) is written in
-        place. ``at`` is the attention layers' slot (None without one)."""
+        place. ``at`` is the attention layers' slot (None without one).
+        The cross-attention reads the whole ``memory`` each step."""
         h = self.norm1(x)
         if self.spec.kind == "attn":
             y = self.attn.decode(h, cache, at, tables)
         else:
             y = getattr(self, self.spec.kind).decode(h, cache)
-        return self._ffn(x + y, num_groups)[0]
+        return self._ffn(self._cross(x + y, tables, memory), num_groups)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +198,14 @@ class Block(nn.Module):
 
 
 def init_stack(key, cfg: ModelConfig, segments: List[Segment],
-               device=None, dtype=torch.float32) -> nn.ModuleList:
+               device=None, dtype=torch.float32,
+               cross_attention: bool = False) -> nn.ModuleList:
     """``stack[si][period]["pos{j}"]``. Keys as the reference draws them:
     segment ``si`` folds ``si`` into ``key``, its periods take
     ``split(·, n_periods)``, and position ``j`` folds in ``j``; the
     reference ``vmap``s over periods, which draws the same bits as one
-    period at a time. ``key=None`` leaves the parameters uninitialised."""
+    period at a time. ``key=None`` leaves the parameters uninitialised.
+    ``cross_attention`` gives every attention block its ``cross``."""
     stacks = nn.ModuleList()
     for si, seg in enumerate(segments):
         keys = prng.split(prng.fold_in(key, si), seg.n_periods) \
@@ -197,7 +213,7 @@ def init_stack(key, cfg: ModelConfig, segments: List[Segment],
         stacks.append(nn.ModuleList(
             nn.ModuleDict({
                 f"pos{j}": Block(None if k is None else prng.fold_in(k, j),
-                                 cfg, spec, device, dtype)
+                                 cfg, spec, device, dtype, cross_attention)
                 for j, spec in enumerate(seg.period)})
             for k in keys))
     return stacks
@@ -227,20 +243,24 @@ def init_stack_cache(cfg: ModelConfig, segments: List[Segment], batch: int,
 
 
 def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
-                num_groups: int = 1):
-    """Full-sequence forward through every block. Returns (x, aux): the
-    MoE layers' aux losses summed in float32 in layer order (0 without
-    one). With ``cfg.remat == "block"`` and autograd on, each period is
-    recomputed in the backward (``torch.utils.checkpoint``,
-    non-reentrant), the reference's ``jax.checkpoint(...,
-    nothing_saveable)`` around its scan body, aux included."""
+                num_groups: int = 1, causal: bool = True,
+                memory: Optional[Memory] = None):
+    """Full-sequence forward through every block, causal (a decoder) or
+    not (the encoder), its cross-attention over ``memory`` where it has
+    one. Returns (x, aux): the MoE layers' aux losses summed in float32
+    in layer order (0 without one). With ``cfg.remat == "block"`` and
+    autograd on, each period is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the reference's
+    ``jax.checkpoint(..., nothing_saveable)`` around its scan body, aux
+    included; the gradient reaches the memory through it."""
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in stacks:
         for period in seg:
             def run(xc, auxc, period=period):
                 for j in range(len(period)):
-                    xc, a = period[f"pos{j}"](xc, tables, num_groups)
+                    xc, a = period[f"pos{j}"](xc, tables, num_groups,
+                                              causal, memory)
                     if a is not None:
                         auxc = auxc + a
                 return xc, auxc
@@ -250,8 +270,10 @@ def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
 
 
 def decode_stack(stacks: nn.ModuleList, cfg: ModelConfig, x,
-                 caches: List[LayerCache], pos, tables, num_groups: int = 1):
-    """One decode step through every block at position ``pos``. The slot
+                 caches: List[LayerCache], pos, tables, num_groups: int = 1,
+                 memory: Optional[Memory] = None):
+    """One decode step through every block at position ``pos``, the
+    cross-attention over ``memory`` where a block has one. The slot
     comes from the first attention layer's cache (every attention layer
     has the same); a model without one computes none."""
     blks = blocks(stacks)
@@ -260,5 +282,5 @@ def decode_stack(stacks: nn.ModuleList, cfg: ModelConfig, x,
     at = None if attn is None \
         else decode_slot(pos, cache_len(attn), cfg.attention.window)
     for blk, cache in zip(blks, caches):
-        x = blk.decode(x, cache, at, tables, num_groups)
+        x = blk.decode(x, cache, at, tables, num_groups, memory)
     return x

@@ -970,3 +970,71 @@ def test_ssm_model_decode_bf16_makes_no_host_sync(card, arch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(state.pos) == 9
+
+
+def test_cross_attention_block_card_equals_cpu(card):
+    """A reduced seamless-m4t-medium decoder block (self-attention, then
+    cross-attention over 16 frames, then its MLP) in float32, TF32 off,
+    card against CPU: the output at 1 and 8 query tokens and its
+    gradients to the input and to the memory within 1e-5 of the largest;
+    then 4 one-token ``decode`` steps over the memory, each output and
+    the cache likewise, with no host sync on the card."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import decode_slot
+    cfg = reduced(get_config("seamless-m4t-medium"))
+    spec = tfm.LayerSpec("attn", "dense")
+    host = tfm.Block(prng.PRNGKey(3), cfg, spec, "cpu",
+                     cross_attention=True)
+    dev_blk = tfm.Block(None, cfg, spec, card, cross_attention=True)
+    with torch.no_grad():
+        for p, q in zip(dev_blk.parameters(), host.parameters()):
+            p.copy_(q)
+    rng = np.random.default_rng(5)
+    enc = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, 16, cfg.d_model))).astype(np.float32))
+
+    def close(a, b):
+        assert (a.detach().cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for Sq in (1, 8):
+            x = torch.from_numpy(rng.standard_normal(
+                (2, Sq, cfg.d_model)).astype(np.float32))
+            out = {}
+            for name, blk, d in (("card", dev_blk, card),
+                                 ("cpu", host, "cpu")):
+                xs = x.to(d).requires_grad_()
+                es = enc.to(d).requires_grad_()
+                y, _ = blk(xs, None, memory=tfm.Memory(es, None))
+                out[name] = (y, *torch.autograd.grad(y.square().sum(),
+                                                     (xs, es)))
+            for a, b in zip(out["card"], out["cpu"]):
+                close(a, b)
+        caches = {d: tfm.init_layer_cache(cfg, spec, 2, 16, torch.float32,
+                                          d) for d in (card, "cpu")}
+        x = torch.from_numpy(rng.standard_normal(
+            (2, 4, cfg.d_model)).astype(np.float32))
+        mem = {d: tfm.Memory(enc.to(d), None) for d in (card, "cpu")}
+        xs = {d: x.to(d) for d in (card, "cpu")}
+        with torch.no_grad():
+            for t in range(4):
+                ys = {}
+                for d, blk in ((card, dev_blk), ("cpu", host)):
+                    pos = torch.tensor(t, dtype=torch.int32, device=d)
+                    at = decode_slot(pos, 16, 0)
+                    torch.cuda.set_sync_debug_mode(
+                        "error" if d is card else 0)
+                    try:
+                        ys[d] = blk.decode(xs[d][:, t:t + 1], caches[d], at,
+                                           None, memory=mem[d])
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                close(ys[card], ys["cpu"])
+                for a, b in zip(caches[card], caches["cpu"]):
+                    close(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

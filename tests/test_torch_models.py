@@ -107,13 +107,6 @@ def test_registry_lists_the_reference_archs():
     assert set(all_configs()) == set(ref_all_configs())
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("seamless-m4t-medium", "5d"), ("qwen2-vl-72b", "5d")])
-def test_unported_families_are_refused(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TM.init_params(reduced(get_config(arch)), None, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # Initial values
 # ---------------------------------------------------------------------------
