@@ -888,10 +888,10 @@ def paths_agree(index, wcfg):
 
 # the serving phase: queries in all (five waves; 1,024 until the recurrent
 # LM phases, 512 until the enc-dec ones needed the seconds), per wave, and
-# compared with solo runs
+# compared with solo runs (64 until the pipeline phase needed the seconds)
 SERVE_QUERIES = 320
 SERVE_WAVE = 64
-SERVE_SOLO = 64
+SERVE_SOLO = 32
 # window batches ingested before serving; the next is ingested while
 # serving (begin_ingest after half the waves, publish two waves later)
 SERVE_WINDOW_BATCHES = 12
@@ -1259,12 +1259,13 @@ def serve_cuda_equals_cpu(dev) -> dict:
 
 # ---- alias tables, node2vec and probes ------------------------------------
 # batches of the main stream replayed on the table path (24 until the
-# recurrent LM phases needed the seconds)
-TABLE_BATCHES = 16
+# recurrent LM phases, 16 until the pipeline phase needed the seconds; the
+# window fills after 12, so the last two evict and maintain their tables)
+TABLE_BATCHES = 14
 # served queries of serve_tables (32 until the enc-dec LM phases needed
-# the seconds), compared with solo runs
+# the seconds), compared with solo runs (16 until the pipeline phase)
 SERVE_TABLE_QUERIES = 24
-SERVE_TABLE_SOLO = 16
+SERVE_TABLE_SOLO = 8
 # node2vec phases: (p, q) of the config walks
 N2V_PQ = (0.5, 2.0)
 # tables_cuda_equals_cpu's served queries, in five waves (18 in six until
@@ -2858,6 +2859,10 @@ LM_SERVE = dict(arch="qwen2-0.5b", prompts=64, prompt_len=256, max_seq=1024,
 # dense bf16 peak of one H100 SXM, NVIDIA's data sheet (no sparsity), at
 # the full 700 W power limit
 BF16_PEAK_FLOPS = 989e12
+# lm_pipeline_full: lm_train_full's olmo-1b after its steps, its 16 layers
+# in 4 GPipe stages of 4 on one card, 8 microbatches of 1 × 2048 tokens
+LM_PIPE = dict(stages=4, microbatches=8)
+LM_PIPE_LOGITS_TOL = 1e-4        # pipelined vs M.forward: of the largest
 # lm_cuda_equals_cpu: both models at full width, 2 layers, float32, TF32
 # off, the same parameters on the card and the CPU. Tolerances:
 LM_EQ_LAYERS = 2
@@ -2974,9 +2979,166 @@ def lm_train_full(args, cfg, batches, dev) -> dict:
                launches=launches, peak_mem_gib=peak,
                train_step_profile=step_profile,
                phase_seconds=time.perf_counter() - t_phase)
-    del model, params, opt, step, batch
+    del params, opt, step, batch
+    pipe = lm_pipeline_full(engine, model, wcfg, mean_ms, dev)
+    del model
     torch.cuda.empty_cache()
-    return out, last_walks, engine
+    return out, pipe, last_walks, engine
+
+
+def dryrun_against_card(row: dict, steady_ms: float,
+                        flops_6nd: float) -> dict:
+    """The dry-run's projection of a train step (``launch.dryrun``
+    row, at data-sheet constants) beside the step the card measured:
+    the measured time over the larger projected term, and the counted
+    FLOPs over 6·N·tokens."""
+    projected_s = max(row["t_compute_s"], row["t_memory_s"])
+    return dict(t_compute_s=row["t_compute_s"], t_memory_s=row["t_memory_s"],
+                bottleneck=row["bottleneck"],
+                counted_flops=row["counted_flops_total"],
+                counted_bytes=row["counted_bytes_total"],
+                flops_6nd=flops_6nd, steady_ms=steady_ms,
+                measured_over_projected=steady_ms / 1e3 / projected_s,
+                counted_over_6nd=row["counted_flops_total"] / flops_6nd)
+
+
+def lm_pipeline_full(engine, model, wcfg, steady_ms: float, dev) -> dict:
+    """olmo-1b as ``lm_train_full`` ends it, its forward pipelined: one
+    more 2^14 × 80 walk batch from that phase's engine (fused path; the
+    engine's key is put back after it, so later phases walk as before)
+    packed into 8 × 2048 tokens, embedded as ``M.forward`` embeds them,
+    then ``gpipe_forward`` over ``ShardGroup([dev] * 4)``: stage s holds
+    periods 4s..4s+3 of the one segment and applies their blocks as
+    ``apply_stack`` does (bf16, the same tables and casts), 8
+    microbatches of 1 × 2048. Required: the pipeline bitwise equal to
+    ``sequential_reference``; each microbatch after ``final_norm`` and
+    its logits within 1e-4 of the largest of ``M.forward`` on that
+    microbatch alone (bitwise read); 0 host syncs inside
+    ``gpipe_forward``; 80 ``fused_hop`` launches. Read: ms (CUDA events)
+    of the pipelined and the sequential forward, in turns, and of
+    ``M.forward`` on the whole batch; kernels, busy ms and idle share of
+    one pipelined and one sequential forward; ticks, bubble, peak
+    memory; then the dry-run's count
+    of ``lm_train_full``'s own step (8 × 2048, remat per block, AdamW)
+    on the one-chip mesh beside its measured ``steady_ms``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.walk_dataset import walks_to_lm_batch
+    from repro_torch.distributed.collectives import ShardGroup
+    from repro_torch.distributed.pipeline import (PipelineStats,
+                                                  gpipe_forward,
+                                                  sequential_reference)
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dev_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import positional_tables
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    P, n_mb = LM_PIPE["stages"], LM_PIPE["microbatches"]
+    key = engine.key
+    runtime.reset_launches()
+    walks = engine.sample_walks(wcfg)
+    engine.key = key
+    toks, _ = walks_to_lm_batch(walks.nodes.cpu().numpy(),
+                                walks.lengths.cpu().numpy(), S, B,
+                                cfg.vocab_size, seed=LM_TRAIN["steps"])
+    tokens = torch.from_numpy(toks).to(dev)
+    dtype = M.compute_dtype(cfg)
+    seg = model.layers[0]
+    require(len(model.layers) == 1 and len(seg) % P == 0
+            and B % n_mb == 0,
+            f"lm_pipeline_full: {len(seg)} periods, {P} stages, batch {B}")
+    per = len(seg) // P
+    stages = [list(seg[s * per:(s + 1) * per]) for s in range(P)]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        x, pos = M._input_embedding(model, {"tokens": tokens}, dtype)
+        xs = x.view((n_mb, B // n_mb) + tuple(x.shape[1:]))
+        tables = positional_tables(cfg.attention, pos[:B // n_mb])
+
+        def stage_fn(periods, h):
+            for period in periods:
+                for j in range(len(period)):
+                    h, _ = period[f"pos{j}"](h, tables, 1, True, None)
+            return h
+
+        group = ShardGroup([dev] * P)
+        stats = PipelineStats()
+        piped, syncs, sites = count_syncs(
+            lambda: gpipe_forward(group, stage_fn, stages, xs, stats))
+        torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        seq = sequential_reference(stage_fn, stages, xs)
+        pipe_equal = bool(torch.equal(piped, seq))
+        hid_err, hid_equal = 0.0, True
+        logits_err = logits_equal = None
+        for m in range(n_mb):
+            mb = B // n_mb
+            want, _, _ = M.forward(model, {"tokens": tokens[m * mb:
+                                                            (m + 1) * mb]})
+            got = model.final_norm(piped[m])
+            hid_equal &= bool(torch.equal(got, want))
+            hid_err = max(hid_err, ((got.float() - want.float()).abs().max()
+                                    / want.float().abs().max()).item())
+            if m == 0:
+                lg = M.logits_from_hidden(model, got).float()
+                lw = M.logits_from_hidden(model, want).float()
+                logits_equal = bool(torch.equal(lg, lw))
+                logits_err = ((lg - lw).abs().max()
+                              / lw.abs().max()).item()
+                del lg, lw
+        batch = {"tokens": tokens}
+        runs = dict(
+            pipeline=lambda: gpipe_forward(group, stage_fn, stages, xs),
+            sequential=lambda: sequential_reference(stage_fn, stages, xs))
+        # in turns, both warm: pipeline, sequential, sequential, pipeline
+        ms = {k: [] for k in runs}
+        for k in ("pipeline", "sequential", "sequential", "pipeline"):
+            ms[k].append(cuda_ms(runs[k], reps=2, warmup=0))
+        fwd_ms = cuda_ms(lambda: M.forward(model, batch), reps=2, warmup=1)
+        profiles = {k: profile_call(f) for k, f in runs.items()}
+    require(pipe_equal, "lm_pipeline_full: gpipe_forward != "
+                        "sequential_reference")
+    require(hid_err <= LM_PIPE_LOGITS_TOL and logits_err <= LM_PIPE_LOGITS_TOL,
+            f"lm_pipeline_full: hidden {hid_err}, logits {logits_err} of the "
+            "largest against M.forward")
+    require(syncs == 0, f"lm_pipeline_full: {syncs} host syncs {sites}")
+    require(launches["fused_hop"] == wcfg.max_length,
+            f"lm_pipeline_full: launches {launches}")
+    require((stats.ticks, stats.busy) == (n_mb + P - 1, P * n_mb),
+            f"lm_pipeline_full: {stats}")
+    # the dry-run of lm_train_full's own step, on the host, on meta
+    t0 = time.perf_counter()
+    row = dryrun.lower_cell(cfg.name, ShapeConfig("lm_train_full", S, B,
+                                                  "train"),
+                            mesh=dev_mesh(), cfg=cfg)
+    dry_s = time.perf_counter() - t0
+    n_params = M.count_params_analytic(cfg)
+    return dict(arch=cfg.name, stages=P, microbatches=n_mb,
+                microbatch=[B // n_mb, S], ticks=stats.ticks,
+                busy_stage_ticks=stats.busy, bubble=stats.bubble,
+                pipeline_equals_sequential=pipe_equal,
+                hidden_equals_forward=hid_equal,
+                hidden_max_err_of_largest=hid_err,
+                logits_equal_forward=logits_equal,
+                logits_max_err_of_largest=logits_err,
+                tolerance=f"{LM_PIPE_LOGITS_TOL} of the largest",
+                host_syncs=syncs, host_sync_sites=sites,
+                pipeline_ms=sum(ms["pipeline"]) / 2,
+                sequential_ms=sum(ms["sequential"]) / 2, ms_in_turns=ms,
+                forward_whole_batch_ms=fwd_ms, profiles=profiles,
+                peak_mem_gib=peak,
+                launches=launches,
+                dryrun=dict(**dryrun_against_card(
+                    row, steady_ms, 6 * n_params * B * S),
+                    mesh=row["mesh"], state_gib=row["state_gib"],
+                    ops=row["ops"], count_seconds=dry_s,
+                    note="projection at data-sheet constants (989 TFLOP/s "
+                         "bf16, 3.35 TB/s), not a reading"),
+                phase_seconds=time.perf_counter() - t_phase)
 
 
 def lm_serve_full(walks, dev) -> dict:
@@ -5160,8 +5322,11 @@ def main(argv=None) -> int:
     emit("optimizer_cuda_equals_cpu", **optimizer_cuda_equals_cpu(dev))
 
     # ---- phase 11: the walk-native LM consumer ---------------------------
-    lm_train, lm_walks, lm_engine = lm_train_full(args, cfg, batches, dev)
+    lm_train, lm_pipe, lm_walks, lm_engine = lm_train_full(args, cfg,
+                                                           batches, dev)
     emit("lm_train_full", **lm_train, cuts=cuts)
+    # ---- phase 15: the GPipe schedule and the dry-run against the card ---
+    emit("lm_pipeline_full", **lm_pipe)
     emit("lm_serve_full", **lm_serve_full(lm_walks, dev))
     emit("lm_cuda_equals_cpu", **lm_cuda_equals_cpu(dev))
 
@@ -5205,6 +5370,7 @@ def main(argv=None) -> int:
                  "fused_hop"],
              train_embeddings_launches=train["launches"]["fused_hop"],
              lm_train_launches=lm_train["launches"]["fused_hop"],
+             lm_pipeline_launches=lm_pipe["launches"]["fused_hop"],
              lm_moe_serve_launches=lm_moe["launches"]["fused_hop"],
              lm_ssm_train_launches=lm_ssm_train["launches"]["fused_hop"],
              lm_ssm_serve_launches=lm_ssm_serve["launches"]["fused_hop"],

@@ -13,9 +13,15 @@ repro/distributed.
 * fault_tolerance — ``StragglerPolicy``, ``WindowCheckpointer`` and
   ``StreamSupervisor``: sharded-window checkpoints with an elastic
   restore (``repro_torch.train.checkpoint``).
+* sharding — the sharding plans: the partition spec of every parameter,
+  moment, batch tensor and decode-state leaf on a mesh, as pure
+  functions.
+* pipeline — ``gpipe_forward``, the GPipe schedule over a
+  ``ShardGroup``, and ``sequential_reference``.
 
-The package imports none of its modules:
-``core/distributed.py`` imports ``collectives`` from it and
-``streaming_shard`` imports ``core/distributed.py``, so an import here
-would be circular.
+The package imports ``sharding`` and ``pipeline``, which import nothing
+of the walker, and no other module: ``core/distributed.py`` imports
+``collectives`` from it and ``streaming_shard`` imports
+``core/distributed.py``, so an import of those here would be circular.
 """
+from repro_torch.distributed import pipeline, sharding  # noqa: F401

@@ -10,8 +10,9 @@ a decode step makes no host sync.
 
 Token groups: the ``T`` tokens are split into ``G = gcd(T, num_groups)``
 groups and each is dispatched on its own, as the reference does per
-data shard. Sharding hints are no-ops on one device and are left out
-(ROADMAP queue 1 item 6 ports sharding).
+data shard. The reference's sharding hints (``hint``) are no-ops on one
+device and are left out: ``distributed.sharding.hint_pspec`` gives the
+spec each would constrain to on a mesh.
 
 Ties and drops, as the reference has them:
 

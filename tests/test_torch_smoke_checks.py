@@ -6,6 +6,11 @@ tolerance and a grad norm within its own: the port's ``apply_updates``
 on gradients perturbed anywhere inside those tolerances stays within the
 limit, and an update that is wrong (another ε, another lr, a flipped
 element) does not.
+
+``dryrun_against_card`` (phase ``lm_pipeline_full``) sets the dry-run's
+projection of a train step beside the card's reading: the measured time
+over the larger projected term, the counted FLOPs over 6·N·tokens, on a
+row that ``launch.dryrun.lower_cell`` returns.
 """
 import importlib.util
 from pathlib import Path
@@ -87,3 +92,29 @@ def test_a_wrong_update_exceeds_the_limit(wrong):
         i = int(g.abs().argmax())
         got[i] = -got[i]
     assert _of_limit(g, got) > 1.0
+
+
+@pytest.mark.parametrize("t_compute,t_memory", [(0.5, 0.2), (0.1, 0.4)])
+def test_dryrun_against_card(t_compute, t_memory):
+    row = dict(t_compute_s=t_compute, t_memory_s=t_memory,
+               bottleneck="compute" if t_compute > t_memory else "memory",
+               counted_flops_total=3e14, counted_bytes_total=1e12)
+    r = CS.dryrun_against_card(row, 1250.0, 2e14)
+    assert r["measured_over_projected"] == pytest.approx(
+        1.25 / max(t_compute, t_memory))
+    assert r["counted_over_6nd"] == pytest.approx(1.5)
+    assert (r["steady_ms"], r["flops_6nd"]) == (1250.0, 2e14)
+
+
+def test_dryrun_against_card_reads_a_lower_cell_row():
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dev_mesh
+    cfg = reduced(get_config("olmo-1b"))
+    row = dryrun.lower_cell(cfg.name, ShapeConfig("lm_train_full", 32, 2,
+                                                  "train"),
+                            mesh=dev_mesh(), cfg=cfg)
+    r = CS.dryrun_against_card(row, 10.0, row["model_flops"])
+    assert r["counted_over_6nd"] == pytest.approx(1 / row["useful_ratio"])
+    assert r["measured_over_projected"] > 0
