@@ -139,20 +139,23 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 PRIMER_ROUND = 64
 PRIMER_ROUNDS = 4
 PRIMER_MS = 20.0
+# the closing primer lasts longer: a sharded walk batch's trace (~160,000
+# kernels) has lost a whole 1,536-launch, 20 ms closer on the card
+CLOSER_MS = 100.0
 # over all traces: how many, the fewest primer launches, and the most
 # events of the opening and of the closing primer a trace did not record
 PRIMER = {"traces": 0, "launched_least": None, "lost_most_opening": 0,
           "lost_most_closing": 0}
 
 
-def prime(primer) -> int:
+def prime(primer, ms: float = PRIMER_MS) -> int:
     """Launch the primer's rounds, at least ``PRIMER_ROUNDS`` and for at
-    least ``PRIMER_MS``; returns the launches."""
+    least ``ms``; returns the launches."""
     import torch
     launched = 0
     t0 = time.perf_counter()
     while launched < PRIMER_ROUNDS * PRIMER_ROUND \
-            or (time.perf_counter() - t0) * 1e3 < PRIMER_MS:
+            or (time.perf_counter() - t0) * 1e3 < ms:
         for _ in range(PRIMER_ROUND):
             primer.bitwise_not_()
         launched += PRIMER_ROUND
@@ -165,7 +168,8 @@ def trace_kernels(fn, host_ops: bool = False):
     end µs)] of the device, wall ms of the call). The trace opens with a
     primer of int16 ``bitwise_not_`` launches and syncs that lasts at
     least ``PRIMER_MS`` (``prime``), so that they are the device's first
-    events, and closes with another on int8, so that they are its last: the
+    events, and closes with another on int8 (``CLOSER_MS``), so that they
+    are its last: the
     first device events of a trace can go unrecorded (seen on the card: a
     decode step's ~800 kernels read ~57 fewer late in the script, and once
     a 256-launch primer was lost whole, so that the trace opened with the
@@ -195,7 +199,7 @@ def trace_kernels(fn, host_ops: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        tail = prime(closer)
+        tail = prime(closer, CLOSER_MS)
     cuda = torch.autograd.DeviceType.CUDA
     events = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
                     for e in prof.profiler.kineto_results.events()
@@ -2990,13 +2994,18 @@ def dryrun_against_card(row: dict, steady_ms: float,
                         flops_6nd: float) -> dict:
     """The dry-run's projection of a train step (``launch.dryrun``
     row, at data-sheet constants) beside the step the card measured:
-    the measured time over the larger projected term, and the counted
-    FLOPs over 6·N·tokens."""
-    projected_s = max(row["t_compute_s"], row["t_memory_s"])
+    the measured time over the largest of the three projected terms
+    (compute, memory, collective), and the counted FLOPs over
+    6·N·tokens."""
+    projected_s = max(row["t_compute_s"], row["t_memory_s"],
+                      row["t_collective_s"])
     return dict(t_compute_s=row["t_compute_s"], t_memory_s=row["t_memory_s"],
+                t_collective_s=row["t_collective_s"],
                 bottleneck=row["bottleneck"],
                 counted_flops=row["counted_flops_total"],
                 counted_bytes=row["counted_bytes_total"],
+                flops_per_chip=row["flops_per_chip"],
+                bytes_per_chip=row["bytes_per_chip"],
                 flops_6nd=flops_6nd, steady_ms=steady_ms,
                 measured_over_projected=steady_ms / 1e3 / projected_s,
                 counted_over_6nd=row["counted_flops_total"] / flops_6nd)
@@ -3020,7 +3029,9 @@ def lm_pipeline_full(engine, model, wcfg, steady_ms: float, dev) -> dict:
     one pipelined and one sequential forward; ticks, bubble, peak
     memory; then the dry-run's count
     of ``lm_train_full``'s own step (8 × 2048, remat per block, AdamW)
-    on the one-chip mesh beside its measured ``steady_ms``."""
+    on the one-chip mesh beside its measured ``steady_ms``, required to
+    move no collective bytes and to count a chip's FLOPs and bytes as
+    the step's own."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.walk_dataset import walks_to_lm_batch
@@ -3116,6 +3127,15 @@ def lm_pipeline_full(engine, model, wcfg, steady_ms: float, dev) -> dict:
                                                   "train"),
                             mesh=dev_mesh(), cfg=cfg)
     dry_s = time.perf_counter() - t0
+    # one chip: no collective, and a chip's counts (the sum of the
+    # count's shares, each over 1 chip) are the step's own
+    require(row["t_collective_s"] == 0
+            and not any(row["collectives"].values())
+            and math.isclose(row["flops_per_chip"],
+                             row["counted_flops_total"], rel_tol=1e-12)
+            and math.isclose(row["bytes_per_chip"],
+                             row["counted_bytes_total"], rel_tol=1e-12),
+            f"lm_pipeline_full: the 1x1 dry-run row {row}")
     n_params = M.count_params_analytic(cfg)
     return dict(arch=cfg.name, stages=P, microbatches=n_mb,
                 microbatch=[B // n_mb, S], ticks=stats.ticks,
@@ -3137,7 +3157,9 @@ def lm_pipeline_full(engine, model, wcfg, steady_ms: float, dev) -> dict:
                     mesh=row["mesh"], state_gib=row["state_gib"],
                     ops=row["ops"], count_seconds=dry_s,
                     note="projection at data-sheet constants (989 TFLOP/s "
-                         "bf16, 3.35 TB/s), not a reading"),
+                         "bf16, 3.35 TB/s, NVLink 450 GB/s and "
+                         "InfiniBand 50 GB/s a direction), not a "
+                         "reading"),
                 phase_seconds=time.perf_counter() - t_phase)
 
 

@@ -30,7 +30,10 @@ stack axis on every leaf of two or more dimensions, the encoder memory
 queue 3 item 12) and are reproduced here, not fixed.
 
 ``hint_pspec`` is the spec the reference's ``hint`` constrains an
-activation to. The port has no ambient mesh, so no model code calls it.
+activation to. The port has no ambient mesh: the model code calls
+``hint`` where the reference does, and it returns its input unchanged
+unless the dry-run's counter (``launch.op_cost.OpCounter``) has set a
+layout hook, which records the layout.
 """
 from __future__ import annotations
 
@@ -197,6 +200,27 @@ def hint_pspec(shape, logical: Sequence[Optional[str]], mesh: Mesh,
         else:
             spec.append(None)
     return tuple(spec)
+
+
+_layout_hook = None
+
+
+def set_layout_hook(hook):
+    """Install ``hook(x, logical) -> x`` for ``hint`` (None removes it);
+    returns the hook it replaces."""
+    global _layout_hook
+    old, _layout_hook = _layout_hook, hook
+    return old
+
+
+def hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """The reference's ``hint(x, *logical)`` at its call sites: ``x``
+    itself, or what the layout hook makes of it while the dry-run counts
+    (``hint_pspec`` gives the spec on a mesh). An entry may be ``(name,
+    size)``: the dimension holds a part of a logical axis of that size
+    (heads grouped by KV head)."""
+    hook = _layout_hook
+    return x if hook is None else hook(x, logical)
 
 
 def batch_pspec(mesh: Mesh, batch_size: int,

@@ -41,7 +41,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import mesh_name, production_mesh
-from repro_torch.launch.op_cost import OpCounts, count_ops
+from repro_torch.launch.comm_cost import plan_collectives
+from repro_torch.launch.op_cost import (OpCounts, count_ops, per_chip,
+                                        step_seeds)
 from repro_torch.launch.specs import (abstract_model, decode_specs,
                                       input_specs)
 from repro_torch.models.model import params_of
@@ -127,14 +129,19 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, groups: int,
     if shape.kind == "train":
         opt_cfg = AdamWConfig()
         opt = init_opt_state(params, opt_cfg)
+        batch = input_specs(cfg, shape)
         step = make_train_step(model, opt_cfg, num_groups=groups)
-        return count_ops(step, params, opt, input_specs(cfg, shape))
+        return count_ops(step, params, opt, batch, seeds=step_seeds(
+            model, params, opt, batch))
     if shape.kind == "prefill":
+        batch = input_specs(cfg, shape)
         step = make_prefill_step(model, num_groups=groups)
-        return count_ops(step, params, input_specs(cfg, shape))
+        return count_ops(step, params, batch,
+                         seeds=step_seeds(model, params, batch=batch))
     tokens, state = decode_specs(cfg, shape, model)
     step = make_serve_step(model, num_groups=groups)
-    return count_ops(step, params, tokens, state)
+    return count_ops(step, params, tokens, state, seeds=step_seeds(
+        model, params, tokens=tokens, state=state, max_seq=shape.seq_len))
 
 
 def _shape(shape: Union[str, ShapeConfig]) -> ShapeConfig:
@@ -168,12 +175,19 @@ def lower_cell(arch: str, shape: Union[str, ShapeConfig], *,
     if key not in cache:
         cache[key] = count_step(cfg, shape, groups, model)
     counts = cache[key]
+    flops, nbytes, _ = per_chip(counts, mesh)
+    comm = plan_collectives(cfg, shape, mesh, counts, groups=groups,
+                            model=model)
+    by_axes, secs = rl.collective_terms(comm, mesh)
     report = rl.RooflineReport(
         arch=arch, shape=shape.name, mesh=mesh_name(mesh), chips=chips,
         flops=counts.flops, bytes=counts.bytes,
         transcendentals=counts.transcendentals,
         state_bytes_per_chip=state_bytes,
-        model_flops=rl.model_flops_for(cfg, shape))
+        model_flops=rl.model_flops_for(cfg, shape),
+        flops_per_chip=flops, bytes_per_chip=nbytes,
+        collective_breakdown=comm.by_kind, collective_by_axes=by_axes,
+        collective_s_by_axes=secs)
     row = report.row()
     row.update(status="ok", groups=groups, ops=counts.ops,
                count_s=time.perf_counter() - t0)

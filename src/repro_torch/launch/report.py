@@ -43,7 +43,7 @@ def render(rows, mesh_filter=None):
 
 def render_by_arch(rows, meshes=("16x16", "2x16x16")):
     """One line per arch, one column per (mesh, shape): ``t_compute /
-    t_memory, mem/chip``, or the failure."""
+    t_memory / t_collective, mem/chip``, or the failure."""
     shapes, cells = [], {}
     for r in rows:
         if r["shape"] not in shapes:
@@ -62,7 +62,8 @@ def render_by_arch(rows, meshes=("16x16", "2x16x16")):
                 parts.append(r["status"])
             else:
                 parts.append(f"{fmt_s(r['t_compute_s'])} / "
-                             f"{fmt_s(r['t_memory_s'])}, "
+                             f"{fmt_s(r['t_memory_s'])} / "
+                             f"{fmt_s(r['t_collective_s'])}, "
                              f"{r['state_gib']:.1f}GiB")
         out.append(f"| {arch} | " + " | ".join(parts) + " |")
     return "\n".join(out)

@@ -35,6 +35,7 @@ from torch import nn
 
 from repro_torch import random as prng
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.distributed.sharding import hint
 from repro_torch.models.layers import parameter, rotate, scalar_like
 
 Q_CHUNK = 1024
@@ -57,6 +58,7 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     q's dtype times the scale rounded to it, the running max, sum and
     output in float32, the probabilities cast to v's dtype for the PV
     product."""
+    q = hint(q, "batch", None, "model", None)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, Dv = v.shape
     rep = H // Hkv
@@ -67,6 +69,7 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     nk = (Skv + kc - 1) // kc
     scale = scalar_like(1.0 / math.sqrt(D), q)
     qg = _by_kv_head(q, Hkv)                         # [B, Hkv, Sq, rep, D]
+    heads = ("batch", ("model", H), None, None, None)  # the running state
     kg = k.permute(0, 2, 1, 3)                       # [B, Hkv, Skv, D]
     vg = v.permute(0, 2, 1, 3).contiguous()          # [B, Hkv, Skv, Dv]
     outs = []
@@ -75,11 +78,12 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         qn = min(qc, Sq - q0)
         qb = qg[:, :, q0:q0 + qn].reshape(B, Hkv, qn * rep, D)
         q_pos = q_offset + q0 + torch.arange(qn, device=dev)
-        m = torch.full((B, Hkv, qn, rep), NEG, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, Hkv, qn, rep), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, Hkv, qn, rep, Dv), dtype=torch.float32,
-                        device=dev)
+        m = hint(torch.full((B, Hkv, qn, rep), NEG, dtype=torch.float32,
+                            device=dev), *heads)
+        l = hint(torch.zeros((B, Hkv, qn, rep), dtype=torch.float32,
+                             device=dev), *heads)
+        o = hint(torch.zeros((B, Hkv, qn, rep, Dv), dtype=torch.float32,
+                             device=dev), *heads)
         for ki in range(nk):
             k0 = ki * kc
             kn = min(kc, Skv - k0)

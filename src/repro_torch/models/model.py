@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import hint
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import LayerCache, Memory
@@ -247,6 +248,7 @@ def forward(model: TransformerLM, batch, *, num_groups: int = 1):
     cfg = model.cfg
     dtype = compute_dtype(cfg)
     x, pos = _input_embedding(model, batch, dtype)
+    x = hint(x, "batch", None, None)
     memory = None
     if cfg.family == "enc_dec":
         memory = _memory(cfg, *run_encoder(model, batch["frames"]))
@@ -267,7 +269,7 @@ def logits_from_hidden(model: TransformerLM, x: torch.Tensor):
 
 
 def _chunk_nll(xs, tab, tg):
-    logits = (xs @ tab.T).float()
+    logits = hint((xs @ tab.T).float(), "batch", None, "model")
     lse = torch.logsumexp(logits, dim=-1)
     tl = torch.gather(logits, 2, tg[..., None].long())[..., 0]
     return torch.sum(lse - tl)
@@ -282,7 +284,7 @@ def cross_entropy_chunked(x, table, targets, *, chunk: int = SEQ_CHUNK):
     sequence order."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
-    tab = table.to(x.dtype)
+    tab = hint(table, "model", None).to(x.dtype)
     remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):

@@ -10,9 +10,9 @@ a decode step makes no host sync.
 
 Token groups: the ``T`` tokens are split into ``G = gcd(T, num_groups)``
 groups and each is dispatched on its own, as the reference does per
-data shard. The reference's sharding hints (``hint``) are no-ops on one
-device and are left out: ``distributed.sharding.hint_pspec`` gives the
-spec each would constrain to on a mesh.
+data shard. The reference's sharding hints sit where it has them
+(``distributed.sharding.hint``): they return their input, and only the
+dry-run's counter reads the layouts they name.
 
 Ties and drops, as the reference has them:
 
@@ -44,6 +44,7 @@ from torch import nn
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed.sharding import hint
 from repro_torch.models.layers import MLP, parameter
 
 
@@ -134,11 +135,13 @@ def dispatch(x: torch.Tensor, r: Routing, E: int,
     G, Tg, d = x.shape
     k = r.e_idx.shape[-1]
     # jnp.repeat(x, k, axis=1): each token k times in a row
-    xk = x.unsqueeze(2).expand(G, Tg, k, d).reshape(G, Tg * k, d)
+    xk = hint(x.unsqueeze(2).expand(G, Tg, k, d).reshape(G, Tg * k, d),
+              "batch", None, None)
     buf = x.new_zeros(G * E * capacity + 1, d)
     buf = buf.index_put((_slot_rows(r, E, capacity).reshape(-1),),
                         xk.reshape(-1, d))
-    return buf[:-1].view(G, E, capacity, d)
+    return hint(buf[:-1].view(G, E, capacity, d), "batch", "model", None,
+                None)
 
 
 def combine(out_buf: torch.Tensor, r: Routing) -> torch.Tensor:
@@ -152,14 +155,15 @@ def combine(out_buf: torch.Tensor, r: Routing) -> torch.Tensor:
     G, E, C, d = out_buf.shape
     g = torch.arange(G, device=out_buf.device).view(G, 1, 1)
     rows = (g * E + r.e_idx) * C + torch.clamp(r.r_idx, 0, C - 1)
-    gathered = out_buf.reshape(G * E * C, d)[rows]             # [G, Tg, k, d]
+    gathered = hint(out_buf.reshape(G * E * C, d)[rows],       # [G, Tg, k, d]
+                    "batch", None, None, None)
     w = torch.where(r.keep, r.top_p, 0.0).to(out_buf.dtype).double()
     acc = torch.zeros(gathered.shape[:2] + (d,), dtype=torch.float32,
                       device=out_buf.device)
     for j in range(gathered.shape[2]):
         acc = (acc.double() + gathered[:, :, j].double()
                * w[:, :, j, None]).float()
-    return acc.to(out_buf.dtype)
+    return hint(acc.to(out_buf.dtype), "batch", None, None)
 
 
 class MoE(nn.Module):
@@ -194,8 +198,8 @@ class MoE(nn.Module):
         G = math.gcd(T, num_groups)          # decode batches may be tiny
         tg = T // G
         capacity = _capacity(tg, self.m)
-        xg = x.reshape(G, tg, d)
-        logits = xg @ self.router.to(x.dtype)
+        xg = hint(x.reshape(G, tg, d), "batch", None, None)
+        logits = hint(xg @ self.router.to(x.dtype), "batch", None, None)
         return xg, group_indices(logits, self.m.top_k, capacity), capacity
 
     def forward(self, x: torch.Tensor, num_groups: int = 1):
@@ -209,7 +213,9 @@ class MoE(nn.Module):
             act = F.silu(h) * u
         else:
             act = F.gelu(h, approximate="tanh") * u
-        y = combine(act @ self.w_down.to(dtype), r).reshape(x.shape)
+        out_buf = hint(act @ self.w_down.to(dtype), "batch", "model", None,
+                       None)
+        y = combine(out_buf, r).reshape(x.shape)
         if self.m.num_shared_experts:
             y = y + self.shared(x)
         if self.m.dense_residual:

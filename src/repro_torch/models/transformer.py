@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import hint
 from repro_torch.models.attention import (Attention, DecodeSlot, KVCache,
                                           MLACache, cache_len, decode_slot,
                                           init_cache, make_attention)
@@ -258,6 +259,7 @@ def apply_stack(stacks: nn.ModuleList, cfg: ModelConfig, x, tables,
     for seg in stacks:
         for period in seg:
             def run(xc, auxc, period=period):
+                xc = hint(xc, "batch", None, None)
                 for j in range(len(period)):
                     xc, a = period[f"pos{j}"](xc, tables, num_groups,
                                               causal, memory)

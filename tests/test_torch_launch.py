@@ -11,7 +11,8 @@
   formula written from the code; pointwise ops count one FLOP an
   element, transcendentals apart; views move no bytes.
 * ``lower_cell`` on a reduced config of each family, train, prefill and
-  decode: ``status`` ok, finite terms, ``t_collective`` None.
+  decode: ``status`` ok, finite terms, ``t_collective`` positive on 2×2
+  and 0 on 1×1, where a chip's counts are the step's own.
 * ``render`` of fixed rows equals the reference's ``render``.
 """
 import dataclasses
@@ -196,14 +197,26 @@ def test_lower_cell_on_reduced_configs(arch):
                                 cache=cache)
         assert row["status"] == "ok" and row["mesh"] == "2x2"
         assert row["chips"] == 4 and row["groups"] == 2
-        assert row["t_collective_s"] is None
-        for k in ("t_compute_s", "t_memory_s", "state_gib",
-                  "counted_flops_total", "useful_ratio"):
+        for k in ("t_compute_s", "t_memory_s", "t_collective_s",
+                  "state_gib", "counted_flops_total", "useful_ratio",
+                  "flops_per_chip", "bytes_per_chip"):
             assert math.isfinite(row[k]) and row[k] > 0, (shape.name, k)
-        assert row["bottleneck"] in ("compute", "memory")
+        assert row["bottleneck"] in ("compute", "memory", "collective")
         assert row["t_compute_s"] == pytest.approx(
-            row["counted_flops_total"] / 4 / roofline.PEAK_FLOPS)
-    assert len(cache) == len(CELLS)
+            row["flops_per_chip"] / roofline.PEAK_FLOPS)
+        # a chip does at least its even share, at most the whole step
+        assert row["counted_flops_total"] / 4 <= row["flops_per_chip"] \
+            <= row["counted_flops_total"]
+        assert sum(row["collectives"].values()) > 0
+        one = dryrun.lower_cell(arch, shape, mesh={"data": 1, "model": 1},
+                                cfg=cfg, cache=cache)
+        assert one["t_collective_s"] == 0
+        assert not any(one["collectives"].values())
+        assert one["flops_per_chip"] == pytest.approx(
+            one["counted_flops_total"], rel=1e-12)
+        assert one["bytes_per_chip"] == pytest.approx(
+            one["counted_bytes_total"], rel=1e-12)
+    assert len(cache) == len(CELLS) + (cfg.moe is not None) * len(CELLS)
 
 
 def test_check_spec_refuses_incoherent_plans():
@@ -219,11 +232,11 @@ def test_check_spec_refuses_incoherent_plans():
 
 ROWS = [
     dict(arch="olmo-1b", shape="train_4k", mesh="16x16", status="ok",
-         t_compute_s=0.0457, t_memory_s=0.2816, t_collective_s=None,
-         bottleneck="memory", useful_ratio=0.639, roofline_fraction=0.104,
-         state_gib=0.069),
+         t_compute_s=0.0457, t_memory_s=0.2816, t_collective_s=0.5012,
+         bottleneck="collective", useful_ratio=0.639,
+         roofline_fraction=0.104, state_gib=0.069),
     dict(arch="olmo-1b", shape="decode_32k", mesh="2x16x16", status="ok",
-         t_compute_s=3.37e-06, t_memory_s=1.2, t_collective_s=None,
+         t_compute_s=3.37e-06, t_memory_s=1.2, t_collective_s=7.1e-4,
          bottleneck="memory", useful_ratio=0.353, roofline_fraction=1.2e-4,
          state_gib=32.01),
     dict(arch="arctic-480b", shape="prefill_32k", mesh="16x16",
@@ -249,8 +262,8 @@ def test_render_by_arch_one_line_an_arch():
     assert text[0] == ("| arch | 16x16 train_4k | 16x16 decode_32k | "
                        "16x16 prefill_32k | 2x16x16 train_4k | "
                        "2x16x16 decode_32k | 2x16x16 prefill_32k |")
-    assert text[2] == ("| olmo-1b | 45.7ms / 281.6ms, 0.1GiB |  |  | "
-                       "22.8ms / 281.6ms, 0.1GiB | 3us / 1.20s, 32.0GiB"
-                       " |  |")
+    assert text[2] == ("| olmo-1b | 45.7ms / 281.6ms / 501.2ms, 0.1GiB "
+                       "|  |  | 22.8ms / 281.6ms / 501.2ms, 0.1GiB | "
+                       "3us / 1.20s / 710us, 32.0GiB |  |")
     assert text[3] == ("| arctic-480b |  |  | FAIL: ValueError: boom |  "
                        "|  |  |")

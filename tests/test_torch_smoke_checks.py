@@ -9,8 +9,9 @@ element) does not.
 
 ``dryrun_against_card`` (phase ``lm_pipeline_full``) sets the dry-run's
 projection of a train step beside the card's reading: the measured time
-over the larger projected term, the counted FLOPs over 6·N·tokens, on a
-row that ``launch.dryrun.lower_cell`` returns.
+over the largest of its three projected terms, the counted FLOPs over
+6·N·tokens, on a row that ``launch.dryrun.lower_cell`` returns; on the
+one-chip mesh that row moves no collective bytes.
 """
 import importlib.util
 from pathlib import Path
@@ -94,16 +95,22 @@ def test_a_wrong_update_exceeds_the_limit(wrong):
     assert _of_limit(g, got) > 1.0
 
 
-@pytest.mark.parametrize("t_compute,t_memory", [(0.5, 0.2), (0.1, 0.4)])
-def test_dryrun_against_card(t_compute, t_memory):
+@pytest.mark.parametrize("t_compute,t_memory,t_collective",
+                         [(0.5, 0.2, 0.0), (0.1, 0.4, 0.0), (0.1, 0.4, 0.8)])
+def test_dryrun_against_card(t_compute, t_memory, t_collective):
+    terms = dict(compute=t_compute, memory=t_memory, collective=t_collective)
     row = dict(t_compute_s=t_compute, t_memory_s=t_memory,
-               bottleneck="compute" if t_compute > t_memory else "memory",
-               counted_flops_total=3e14, counted_bytes_total=1e12)
+               t_collective_s=t_collective,
+               bottleneck=max(terms, key=terms.get),
+               counted_flops_total=3e14, counted_bytes_total=1e12,
+               flops_per_chip=3e14 / 4, bytes_per_chip=1e12 / 4)
     r = CS.dryrun_against_card(row, 1250.0, 2e14)
     assert r["measured_over_projected"] == pytest.approx(
-        1.25 / max(t_compute, t_memory))
+        1.25 / max(t_compute, t_memory, t_collective))
     assert r["counted_over_6nd"] == pytest.approx(1.5)
     assert (r["steady_ms"], r["flops_6nd"]) == (1250.0, 2e14)
+    assert (r["t_collective_s"], r["flops_per_chip"], r["bytes_per_chip"]) \
+        == (t_collective, 7.5e13, 2.5e11)
 
 
 def test_dryrun_against_card_reads_a_lower_cell_row():
@@ -118,3 +125,9 @@ def test_dryrun_against_card_reads_a_lower_cell_row():
     r = CS.dryrun_against_card(row, 10.0, row["model_flops"])
     assert r["counted_over_6nd"] == pytest.approx(1 / row["useful_ratio"])
     assert r["measured_over_projected"] > 0
+    # phase 15's requirement on the one-chip mesh
+    assert r["t_collective_s"] == 0 and not any(row["collectives"].values())
+    assert r["flops_per_chip"] == pytest.approx(row["counted_flops_total"],
+                                                rel=1e-12)
+    assert r["bytes_per_chip"] == pytest.approx(row["counted_bytes_total"],
+                                                rel=1e-12)
