@@ -45,7 +45,8 @@ in bf16, holds both in float32 on the card to the CPU, trains
 seamless-m4t-medium (an encoder over audio frames, cross-attention) at
 full size on the same walks, serves it and qwen2-vl-72b (patches before
 the text, M-RoPE) at full width on 2 layers in bf16, holds both reduced
-in float32 on the card to the CPU, and prints
+in float32 on the card to the CPU, runs the six ``tools/examples`` entry
+points in-process at their reference scripts' sizes, and prints
 one JSON line per phase, each with its wall seconds (``wall_s``, since
 the line before). The last three lines are the kernels
 table, the card's name and power limit, and ``{"ok": true, "device":
@@ -4890,6 +4891,131 @@ def lm_encdec_vlm_cuda_equals_cpu(dev) -> dict:
     return out
 
 
+EXAMPLES = ("quickstart", "streaming_walks", "serve_walks",
+            "train_embeddings", "serve_lm", "train_lm_on_walks")
+EXAMPLES_LM_STEPS = 40
+
+
+def load_example(name: str):
+    """``tools/examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "tools" / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_cuda(dev) -> dict:
+    """The six entry points of ``tools/examples`` called in-process on the
+    card at their reference scripts' default sizes (``train_lm_on_walks``
+    at ``--steps 40`` with a temporary checkpoint directory), each on a
+    line of its own with its wall seconds and its ``fused_hop`` and
+    ``weight_prefix`` launches. Requires hop validity 1.0 on every walk
+    the scripts validate; quickstart's walks bitwise equal to the same
+    call on the CPU; serve_walks' solo == coalesced (the script's own
+    check), and the 4-shard tickets == the single-device solo runs with
+    0 walk and 0 ingest drops; train_embeddings' final AUC above 0.5; finite LM
+    losses, the last below the first; no host sync in serve_lm's decode
+    loop (``set_sync_debug_mode("error")``); ``weight_prefix`` launched
+    by every entry point that builds an index."""
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import runtime
+    t_phase = time.perf_counter()
+    mods = {name: load_example(name) for name in EXAMPLES}
+    reports = []                 # (hop valid fraction, hops) of each check
+
+    def validated(mod):
+        validate = mod.validate_walks
+
+        def run(index, walks):
+            rep = validate(index, walks)
+            reports.append((float(rep.hop_valid_frac), int(rep.num_hops)))
+            return rep
+        mod.validate_walks = run
+
+    for name in ("quickstart", "streaming_walks"):
+        validated(mods[name])
+    mods["serve_lm"].decode = no_host_sync(mods["serve_lm"].decode)
+    ckpt_dir = tempfile.mkdtemp(prefix="examples_lm_")
+    argv = {"serve_walks": ["--shards", "4"],
+            "train_lm_on_walks": ["--steps", str(EXAMPLES_LM_STEPS),
+                                  "--ckpt-dir", ckpt_dir]}
+    out, launches, seconds = {}, {}, {}
+    try:
+        for name in EXAMPLES:
+            runtime.reset_launches()
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out[name] = mods[name].main(["--device", str(dev)]
+                                            + argv.get(name, []))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = {k: runtime.LAUNCHES[k]
+                              for k in ("fused_hop", "weight_prefix")}
+            emit("examples_cuda_entry", entry=name,
+                 seconds=seconds[name], launches=launches[name],
+                 printed_lines=len(printed.getvalue().splitlines()))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    require(all(v == 1.0 and n > 0 for v, n in reports),
+            f"examples_cuda: hop validity {reports}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = mods["quickstart"].main(["--device", "cpu"])
+    card = out["quickstart"]
+    require(all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                for f in ("nodes", "times", "lengths")),
+            "examples_cuda: quickstart's walks differ from the CPU's")
+    # the script asserts solo == coalesced (the fraud tenant, before the
+    # next batch is published) and sharded == solo; held again here on
+    # the final window, tenant by tenant
+    svc, _, tenants, _, sharded, sharded_results = out["serve_walks"]
+    for q, r in zip(tenants, sharded_results):
+        nodes, _, lengths = svc.run_query_solo(q)
+        require(np.array_equal(nodes, r.nodes)
+                and np.array_equal(lengths, r.lengths),
+                f"examples_cuda: serve_walks --shards 4 != solo for {q}")
+    require(len(sharded_results) == 3 and sharded.num_shards == 4
+            and sharded.stats.shard_walk_drops == 0
+            and sharded.stats.exchange_drops == 0,
+            f"examples_cuda: serve_walks --shards 4 drops "
+            f"{sharded.stats.shard_walk_drops} walk, "
+            f"{sharded.stats.exchange_drops} ingest")
+    emb = out["train_embeddings"]
+    require(emb["final_auc"] > 0.5,
+            f"examples_cuda: train_embeddings AUC {emb['final_auc']}")
+    losses = out["train_lm_on_walks"]
+    require(len(losses) == EXAMPLES_LM_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0],
+            f"examples_cuda: train_lm_on_walks losses {losses}")
+    ids = out["serve_lm"]
+    require(ids.shape == (4, 32), f"examples_cuda: serve_lm ids {ids.shape}")
+    builds = [n for n in EXAMPLES if n != "serve_lm"]
+    require(all(launches[n]["weight_prefix"] > 0 for n in builds),
+            f"examples_cuda: weight_prefix launches {launches}")
+    return dict(entries=list(EXAMPLES), seconds=seconds, launches=launches,
+                hop_valid_frac=min(v for v, _ in reports),
+                hops_checked=sum(n for _, n in reports),
+                quickstart_cuda_equals_cpu=True,
+                serve_walks_solo_equals_coalesced=True,
+                serve_walks_sharded_equals_solo=True,
+                serve_walks_sharded_drops=dict(
+                    walk=sharded.stats.shard_walk_drops,
+                    ingest=sharded.stats.exchange_drops),
+                train_embeddings_final_auc=emb["final_auc"],
+                train_lm_losses=dict(first=losses[0], last=losses[-1],
+                                     steps=len(losses)),
+                serve_lm_decode_host_syncs=0,
+                serve_lm_first_ids=ids[0][:16].tolist(),
+                phase_seconds=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     t_start = time.perf_counter()
@@ -5373,6 +5499,10 @@ def main(argv=None) -> int:
     emit("lm_encdec_vlm_serve_full", **lm_encdec_serve)
     emit("lm_encdec_vlm_cuda_equals_cpu",
          **lm_encdec_vlm_cuda_equals_cpu(dev))
+
+    # ---- phase 16: the six examples as entry points ----------------------
+    examples = examples_cuda(dev)
+    emit("examples_cuda", **examples)
     emit("total", seconds=time.perf_counter() - t_start, primer=PRIMER)
 
     # ---- kernels line, card line, contract line --------------------------
@@ -5400,6 +5530,8 @@ def main(argv=None) -> int:
                  "fused_hop"],
              lm_encdec_vlm_serve_launches=lm_encdec_serve["launches"][
                  "fused_hop"],
+             examples_launches={k: v["fused_hop"] for k, v in
+                                examples["launches"].items()},
              **serve["fused_hop"])
         for tier, replaces in (("S", "src/repro/kernels/fused_step.py:406"),
                                ("L", "src/repro/kernels/fused_step.py:450"))
@@ -5425,6 +5557,8 @@ def main(argv=None) -> int:
                  "weight_prefix"],
              lm_encdec_vlm_serve_launches=lm_encdec_serve["launches"][
                  "weight_prefix"],
+             examples_launches={k: v["weight_prefix"] for k, v in
+                                examples["launches"].items()},
              checkpoint_restore_launches=[
                  r["restore_launches"]["weight_prefix"]
                  for r in ckpt["runs"]],

@@ -21,9 +21,13 @@ cache's sequence over ``model``), applied to the port's specs
 5. ``split_decode`` — the split-sequence decode's all-reduce.
 6. ``activation_reshards`` — all-gather of a tensor a ``hint`` (or a
    weight gradient's leaf) takes off ``model``.
+7. ``recurrence_steps`` — the gathers and reductions a mamba scan's
+   time loop makes each step over ``model``, times its trip count (the
+   sequence), train and prefill.
 
-Rules 1, 2, 4 and 5 count uses from the config; rules 3 and 6 read what
-the counter recorded (``op_cost.OpCounts.products`` and ``reshards``).
+Rules 1, 2, 4, 5 and 7 count uses from the config; rules 3 and 6 read
+what the counter recorded (``op_cost.OpCounts.products`` and
+``reshards``).
 Two departures from the plan's account, each matching the reference's
 compiled train step: rule 1 gathers again in the backward with remat
 off too, and rule 6 exists. An axis of size 1 moves nothing. XLA's partitioner chooses its own collectives
@@ -264,11 +268,44 @@ def split_decode(cfg, batch: int, max_seq: int, mesh, out: CommCounts,
             out.add("all-reduce", ("model",), nbytes)
 
 
+def recurrence_steps(leaves, batch: int, seq_len: int, mesh, train: bool,
+                     out: CommCounts, mode: Optional[str] = None) -> None:
+    """Rule 7, a mamba scan whose state ``h [B, di, N]`` lies over
+    ``model`` on ``N`` (``A_log``'s spec, the last entry of its rule)
+    moves its per-step inputs and output over ``model`` once a time step,
+    inside the loop: an all-gather of each of ``dt`` and ``dt·x`` and an
+    all-reduce of ``y = h·C`` (the contraction over ``N``), each ``[B,
+    di]`` float32 with ``B`` the batch on one chip. In train the
+    backward's loop gathers the inputs and the output's cotangent (three)
+    and all-reduces the inputs' two cotangents. Each is multiplied by the
+    loop's trip count, ``seq_len``, as the reference's ``hlo_cost``
+    multiplies a ``while`` body (read off its compiled jamba steps on 2×4
+    and 1×8: 2 + 1 ``f32[B, di]`` a step and layer forward, 3 + 2 more
+    in train). A decode step is one step with no loop, its state laid out
+    over ``di`` (``cache_pspec``), and moves none of these."""
+    m = mesh.get("model", 1)
+    if m == 1:
+        return
+    bspec = shd.batch_pspec(mesh, batch, mode)
+    b_local = batch // shd._size(mesh, bspec[0] if bspec else None)
+    gathers, reduces = (5, 3) if train else (2, 1)
+    for path, stacked, _ in leaves:
+        if not path.endswith("mamba/A_log"):
+            continue
+        spec = shd.param_pspec(path, stacked, mesh, mode)
+        if len(spec) < len(stacked) or "model" not in shd._parts(spec[-1]):
+            continue
+        periods, di = math.prod(stacked[:-2]), stacked[-2]
+        nbytes = b_local * di * 4
+        out.add("all-gather", ("model",), nbytes, gathers * seq_len * periods)
+        out.add("all-reduce", ("model",), nbytes, reduces * seq_len * periods)
+
+
 def plan_collectives(cfg, shape, mesh, counts: OpCounts,
                      mode: Optional[str] = None, groups: int = 1,
                      model=None) -> CommCounts:
     """The bytes one chip of ``mesh`` moves in one step of ``shape`` (a
-    ``ShapeConfig``), by kind and mesh axes: the six rules above,
+    ``ShapeConfig``), by kind and mesh axes: the seven rules above,
     ``counts`` the step's counts (its products and reshards), ``groups``
     the MoE token groups of the step, ``model`` the step's model (a
     meta skeleton of ``cfg`` by default). A 1×1 mesh moves nothing."""
@@ -295,4 +332,7 @@ def plan_collectives(cfg, shape, mesh, counts: OpCounts,
     if shape.kind == "decode":
         split_decode(cfg, shape.global_batch, shape.seq_len, mesh, out,
                      mode)
+    else:
+        recurrence_steps(leaves, shape.global_batch, shape.seq_len, mesh,
+                         train, out, mode)
     return out

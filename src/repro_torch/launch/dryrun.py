@@ -132,16 +132,18 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, groups: int,
         batch = input_specs(cfg, shape)
         step = make_train_step(model, opt_cfg, num_groups=groups)
         return count_ops(step, params, opt, batch, seeds=step_seeds(
-            model, params, opt, batch))
+            model, params, opt, batch), residual=cfg.d_model)
     if shape.kind == "prefill":
         batch = input_specs(cfg, shape)
         step = make_prefill_step(model, num_groups=groups)
         return count_ops(step, params, batch,
-                         seeds=step_seeds(model, params, batch=batch))
+                         seeds=step_seeds(model, params, batch=batch),
+                         residual=cfg.d_model)
     tokens, state = decode_specs(cfg, shape, model)
     step = make_serve_step(model, num_groups=groups)
     return count_ops(step, params, tokens, state, seeds=step_seeds(
-        model, params, tokens=tokens, state=state, max_seq=shape.seq_len))
+        model, params, tokens=tokens, state=state, max_seq=shape.seq_len),
+        residual=cfg.d_model)
 
 
 def _shape(shape: Union[str, ShapeConfig]) -> ShapeConfig:

@@ -41,7 +41,16 @@ every tensor (a ``WeakTensorKeyDictionary`` filled in
   dimension's axes split the product and are summed away. A product's
   weight gradient (an operand entered a product with that weight in the
   forward, and the result has the weight operand's shape) takes the
-  weight's layout, as the reference's gradient sharding pins it.
+  weight's layout, as the reference's gradient sharding pins it;
+* a product of a weight and an activation that carry no ``model`` is
+  split over ``model`` on its output features only where it writes the
+  residual stream (``residual`` wide: every (fsdp, model) rule puts
+  ``model`` on a stacked leaf's ``d_model`` rows, so XLA lays the
+  residual out over ``model`` and computes its writers split); any
+  other such product runs replicated over ``model``, as XLA computes
+  xlstm's q/k/v projections. A ``hint`` on a product's output (through
+  views) lays out the product too: a constraint propagates to its
+  producer.
 
 An op's FLOPs and bytes on one chip are its global count divided by the
 shards that split it: the batch shards where a batch axis lies on one of
@@ -288,17 +297,22 @@ class _Hint(torch.autograd.Function):
 
 
 class OpCounter(TorchDispatchMode):
-    """``with OpCounter(seeds) as c: step(...)``, then ``c.counts``.
-    ``seeds`` maps tensors to their ``Layout`` (``step_seeds``)."""
+    """``with OpCounter(seeds, residual) as c: step(...)``, then
+    ``c.counts``. ``seeds`` maps tensors to their ``Layout``
+    (``step_seeds``); ``residual`` is the model's ``d_model``, the only
+    output width at which a product with nothing over ``model`` is split
+    over it (None: at none)."""
 
-    def __init__(self, seeds=None):
+    def __init__(self, seeds=None, residual: Optional[int] = None):
         super().__init__()
         self.counts = OpCounts()
+        self.residual = residual
         self.layouts = WeakTensorKeyDictionary()
         # autograd node -> {shape: dims} of its outputs, and the layouts
         # its backward may give (``_grad_dims``)
         self._node_outs, self._node_cands = {}, {}
-        # the last op that made a tensor from no tensor: (that tensor, its
+        # the last op that made a tensor from no tensor, or a forward
+        # product's output (or a view of either): (that tensor, its
         # class, its counts), moved to the layout a hint then gives it
         self._made = None
         for t, lay in (seeds or {}).items():
@@ -316,10 +330,12 @@ class OpCounter(TorchDispatchMode):
         dims = dims_of(x.shape, logical)
         made = self._made
         if made is not None and made[0] is x:
-            # a buffer made and laid out at once: its making too
+            # a buffer or a product's output made and laid out at once:
+            # its making too (a constraint propagates to its producer)
             _, key, f, b, tx = made
+            new = _key(dims)
             self._add(key, f, b, tx, -1.0)
-            self._add(_key(dims), f, b, tx)
+            self._add((key[0] | new[0], key[1] | new[1], None), f, b, tx)
         return _Hint.apply(x, self, dims)
 
     def _relayout(self, y, dims):
@@ -382,12 +398,12 @@ class OpCounter(TorchDispatchMode):
             key = _REPLICATED
         self._add(key, f, b, tx)
         made = self._made
-        if made is not None and packet in (aten.detach, aten.alias) \
-                and ins[0] is made[0]:
-            self._made = (outs[0],) + made[1:]       # a factory's detach
+        if made is not None and ins and ins[0] is made[0] and outs \
+                and (func.is_view or packet in _RESHAPES):
+            self._made = (outs[0],) + made[1:]       # a view of it
         else:
-            self._made = (outs[0], key, f, b, tx) if outs and not ins \
-                else None
+            self._made = (outs[0], key, f, b, tx) if outs and (
+                not ins or (packet in _PRODUCTS and node is None)) else None
         return out
 
     def _add(self, key, f, b, tx, sign=1.0):
@@ -504,10 +520,11 @@ class OpCounter(TorchDispatchMode):
         weight product, records a forward one whose contraction carries
         ``model``, and splits the output's last dimension over ``model``
         where neither the weight nor the activation's free dimensions
-        carry it (the reference's partitioner splits a weight product
-        over ``model`` by the weight, the contraction or else the output
-        features; it replicates an expert product whose experts do not
-        divide ``model``)."""
+        carry it and the output is ``residual`` wide (the reference's
+        partitioner splits a weight product over ``model`` by the
+        weight, the contraction or else, for the residual stream, the
+        output features; it replicates an expert product whose experts
+        do not divide ``model``, and xlstm's q/k/v projections)."""
         a, b = ins[-2], ins[-1]
         la, lb = lays[-2], lays[-1]
         contraction = la.dims[-1] | lb.dims[-2]
@@ -526,7 +543,8 @@ class OpCounter(TorchDispatchMode):
                     x.is_floating_point())] += 1
             free = wl.dims + (xl.dims[:-1] if x is a else xl.dims[:-2]
                               + xl.dims[-1:])
-            if not any(ax == "model" for lab in free for ax, _ in lab):
+            if not any(ax == "model" for lab in free for ax, _ in lab) \
+                    and self.residual == int(out.shape[-1]):
                 last = frozenset({("model", int(out.shape[-1]))})
                 dims = dims[:-1] + (dims[-1] | last,)
             return contraction, dims, None
@@ -687,9 +705,10 @@ def per_chip(counts: OpCounts, mesh, mode: Optional[str] = None
                  for k in range(3))
 
 
-def count_ops(fn, *args, seeds=None, **kwargs) -> OpCounts:
+def count_ops(fn, *args, seeds=None, residual: Optional[int] = None,
+              **kwargs) -> OpCounts:
     """Counts of ``fn(*args, **kwargs)`` (meta tensors, or any), its
-    inputs laid out by ``seeds``."""
-    with OpCounter(seeds) as counter:
+    inputs laid out by ``seeds``; ``residual`` as ``OpCounter``'s."""
+    with OpCounter(seeds, residual) as counter:
         fn(*args, **kwargs)
     return counter.counts

@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch import random as prng
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.distributed.sharding import hint
 from repro_torch.models.layers import parameter, rmsnorm
 
 
@@ -305,15 +306,24 @@ class MLSTM(nn.Module):
         return y
 
 
-def _mlstm_inputs(p: MLSTM, x):
+def _mlstm_inputs(p: MLSTM, x, given_state: bool = False):
     """(q, k, v ``[B, S, H, dh]``, i_pre, f_pre ``[B, S, H]``, z ``[B, S,
-    di]``) in the compute dtype."""
+    di]``) in the compute dtype. With ``given_state`` (a decode state,
+    laid out by ``sharding.cache_pspec`` with ``dk`` over ``model``), q
+    and k take the state's layout, as the reference's partitioner lays
+    them out from the state (``hint``; read off its compiled decode
+    step: q and k split over ``model`` on ``dk``, v not)."""
     dtype = x.dtype
     di = p.wq.shape[0]
     up = x @ p.w_up.to(dtype)
     u, z = up[..., :di], up[..., di:]
-    q, k, v = ((u @ w.to(dtype).flatten(1)).unflatten(-1, w.shape[1:])
-               for w in (p.wq, p.wk, p.wv))
+    dk = ("batch", None, None, "model") if given_state else ()
+
+    def project(w, layout=()):
+        y = (u @ w.to(dtype).flatten(1)).unflatten(-1, w.shape[1:])
+        return hint(y, *layout) if layout else y
+
+    q, k, v = project(p.wq, dk), project(p.wk, dk), project(p.wv)
     gates = u @ p.w_if.to(dtype) + p.b_if.to(dtype)
     H = p.wq.shape[1]
     return q, k, v, gates[..., :H], gates[..., H:], z
@@ -332,9 +342,10 @@ def mlstm_forward(p: MLSTM, x, state: MLSTMState | None = None):
     time: x ``[B, S, d]`` → (y ``[B, S, d]``, state)."""
     B, S, _ = x.shape
     dtype = x.dtype
+    given = state is not None
     if state is None:
         state = mlstm_init_state(p.cfg, p.s, B, dtype, x.device)
-    q, k, v, i_pre, f_pre, z = _mlstm_inputs(p, x)
+    q, k, v, i_pre, f_pre, z = _mlstm_inputs(p, x, given)
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf = q.float(), k.float(), v.float()
     i_f, f_f = i_pre.float(), f_pre.float()

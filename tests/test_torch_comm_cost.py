@@ -20,6 +20,12 @@ cases worked out by hand.
 * The layouts: heads hinted over ``model`` split the attention, a weight
   gradient takes its leaf's layout, a split of a merged dimension gives
   each axis back to its own dimension (GQA's kv groups too).
+* A product of a replicated weight and activation is split over its
+  output features only at the residual width; a hint on a product's
+  output lays out the product too.
+* A mamba scan's per-step gathers and reductions (rule 7), times the
+  sequence, train and prefill; none where ``model`` does not divide
+  ``d_state``, none in decode.
 """
 import dataclasses
 import math
@@ -334,3 +340,76 @@ def test_plan_collectives_rows_carry_the_term():
         sum(coll.values()))
     assert row["t_collective_s"] == pytest.approx(
         sum(coll.values()) / rl.NVLINK_BW)
+
+
+@pytest.mark.parametrize("width,split", [(64, True), (128, False)])
+def test_output_split_only_at_the_residual_width(width, split):
+    # a weight with no model entry ("mlstm/wq" lands its model on the
+    # period axis of one period) and an activation with none
+    w = _meta(64, width)
+    x = _meta(8, 32, 64)
+    lay = op_cost.param_layout("layers/0/pos0/mlstm/wq", (1, 64, width),
+                               (64, width))
+    assert not any(lay.dims)
+    seeds = {w: lay, x: op_cost.Layout(op_cost.dims_of(x.shape,
+                                                        ("batch",)))}
+    counts = op_cost.count_ops(lambda x, w: x @ w, x, w, seeds=seeds,
+                               residual=64)
+    flops, _, _ = op_cost.per_chip(counts, MESH)
+    # 2·256·64·width FLOPs, over batch 2 and, at the residual width,
+    # over model 4 on the output features
+    assert counts.flops == 2 * 256 * 64 * width
+    assert flops == counts.flops / (8 if split else 2)
+
+
+def test_hint_on_a_product_lays_out_the_product():
+    w = _meta(64, 128)
+    x = _meta(8, 32, 64)
+    lay = op_cost.param_layout("layers/0/pos0/mlstm/wq", (1, 64, 128),
+                               (64, 128))
+    seeds = {w: lay, x: op_cost.Layout(op_cost.dims_of(x.shape,
+                                                        ("batch",)))}
+
+    def proj(x, w):
+        return shd.hint((x @ w).unflatten(-1, (2, 64)), "batch", None,
+                        None, "model")
+
+    counts = op_cost.count_ops(proj, x, w, seeds=seeds, residual=64)
+    # replicated over model as made, split by the hint on its view: the
+    # product's FLOPs over batch 2 × model 4, and no reshard
+    assert op_cost.per_chip(counts, MESH)[0] == counts.flops / 8
+    assert not counts.reshards
+
+
+@pytest.mark.parametrize("kind,gathers,reduces", [("train", 5, 3),
+                                                   ("prefill", 2, 1)])
+def test_recurrence_steps_by_hand(kind, gathers, reduces):
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    leaves = cc._leaves(dryrun.abstract_model(cfg))
+    mamba = [l for l in leaves if l[0].endswith("mamba/A_log")]
+    di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    assert len(mamba) == 7 and all(l[1] == (1, di, N) for l in mamba)
+    out = cc.CommCounts()
+    cc.recurrence_steps(leaves, 8, 32, MESH, kind == "train", out)
+    # 7 layers × 32 steps, each [B/2 = 4, di] float32 over model
+    unit = 4 * di * 4 * 32 * 7
+    assert dict(out.bytes) == {("all-gather", ("model",)): gathers * unit,
+                               ("all-reduce", ("model",)): reduces * unit}
+    # d_state 8 does not divide over model 16: the state is not split
+    out = cc.CommCounts()
+    cc.recurrence_steps(leaves, 8, 32, {"data": 1, "model": 16},
+                        True, out)
+    assert not out.bytes
+
+
+def test_decode_runs_no_time_loop(monkeypatch):
+    calls = []
+    monkeypatch.setattr(cc, "recurrence_steps",
+                        lambda *a, **k: calls.append(a[2]))
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    for kind in ("train", "prefill", "decode"):
+        cc.plan_collectives(cfg, ShapeConfig(kind, 32, 8, kind), MESH,
+                            op_cost.OpCounts())
+    # the sequence's trip count for train and prefill; a decode step has
+    # no loop
+    assert calls == [32, 32]

@@ -1,8 +1,8 @@
 """Hygiene of the PyTorch port.
 
-* No file of ``src/repro_torch`` nor ``chip_smoke.py`` imports ``jax`` or
-  the reference package ``repro`` (AST scan, and an import of every module
-  with both blocked).
+* No file of ``src/repro_torch``, ``tools/`` (the examples included) nor
+  ``chip_smoke.py`` imports ``jax`` or the reference package ``repro``
+  (AST scan, and an import of every module with both blocked).
 * Importing the package builds nothing and needs neither ``nvcc`` nor a
   card; without a card, an entry point called without ``device="cpu"``
   raises instead of running on the CPU.
@@ -43,7 +43,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").rglob(
+        "*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):

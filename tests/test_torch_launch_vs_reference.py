@@ -24,8 +24,10 @@ is held to the same bands as a config they were not read off.
 * A chip's bytes are printed, not held.
 
 ``python tests/test_torch_launch_vs_reference.py ARCH...`` prints the
-same cells of any config (the SSM and hybrid families are not held:
-PERF.md §7).
+same cells of any config. The SSM and hybrid families (jamba-v0.1-52b,
+xlstm-125m) are held at the same bands in
+``tests/test_torch_launch_recurrent_vs_reference.py``, which shares this
+file's helpers.
 """
 import json
 import os
@@ -63,6 +65,7 @@ from repro.train.train_loop import (make_prefill_step, make_serve_step,
                                     make_train_step)
 
 arch, path = sys.argv[1], sys.argv[2]
+hlo_dir = sys.argv[3] if len(sys.argv) > 3 else None
 meshes, kinds, B, S = %r, %r, %d, %d
 out = {}
 cfg = reduced(get_config(arch))
@@ -103,7 +106,12 @@ for name, sizes in meshes.items():
                         mesh, shd.batch_pspec(mesh, B)), sshard),
                     out_shardings=(None, sshard),
                     donate_argnums=(2,)).lower(params, tokens, state)
-            totals = hlo_cost.analyze_hlo_text(lowered.compile().as_text())
+            text = lowered.compile().as_text()
+            totals = hlo_cost.analyze_hlo_text(text)
+        if hlo_dir:
+            with open(os.path.join(hlo_dir, f"{arch}_{name}_{kind}.txt"),
+                      "w") as f:
+                f.write(text)
         out[f"{name}/{kind}"] = dict(
             flops=totals.flops, bytes=totals.bytes,
             collectives={k: float(v) for k, v in totals.collectives.items()})
@@ -112,14 +120,16 @@ with open(path, "w") as f:
 """
 
 
-def _reference(archs, tmp: Path) -> dict:
+def _reference(archs, tmp: Path, hlo_dir: Path = None) -> dict:
     """The reference's per-chip counts of every cell, by arch, from one
-    subprocess an arch (run side by side)."""
+    subprocess an arch (run side by side); with ``hlo_dir``, each cell's
+    compiled module too, as ``{arch}_{mesh}_{kind}.txt``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     code = SCRIPT % (MESHES, KINDS, BATCH, SEQ)
     procs = {arch: subprocess.Popen(
-        [sys.executable, "-c", code, arch, str(tmp / f"{arch}.json")],
+        [sys.executable, "-c", code, arch, str(tmp / f"{arch}.json")]
+        + ([str(hlo_dir)] if hlo_dir else []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for arch in archs}
     out = {}
